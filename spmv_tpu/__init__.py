@@ -1,12 +1,12 @@
-"""spmv-tpu — a TPU-native sparse matrix–vector multiplication framework.
+"""A sparse matrix–vector multiplication framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of
+A from-scratch JAX/XLA re-design with the capabilities of
 ``sgartkink/opencl-spmv-algorithms`` (C + OpenCL): the reference's five
-sparse formats COO, CSR, ELL, SELL-C-σ and CMRS plus a byte-cost-optimal
-HYB and a block-dense BSR for multi-RHS SpMM, MatrixMarket ingestion,
-golden-oracle validation, roofline benchmarking, and multi-chip scaling over ``jax.sharding`` meshes.  See
-``SURVEY.md`` for the reference analysis and ``docs/DESIGN.md`` for the
-TPU architecture.
+sparse formats COO, CSR, ELL, SELL-C-σ and CMRS plus HYB, symmetric
+triangle storage and a block-dense BSR for multi-RHS SpMM, MatrixMarket
+ingestion, golden-oracle validation, benchmarking, and multi-device
+scaling over ``jax.sharding`` meshes.  See ``SURVEY.md`` for the
+reference analysis and ``docs/DESIGN.md`` for the device design.
 """
 
 from spmv_tpu.api import FORMATS, from_coo, load, spmm, spmv
@@ -20,10 +20,9 @@ from spmv_tpu.formats.sell import SellMatrix
 from spmv_tpu.oracle import (
     check_result,
     default_x,
-    engine_rel_tol,
+    fp32_check,
     fp32_rel_tol,
     golden_spmv,
-    seg_engine_scale,
 )
 
 from spmv_tpu.x2 import X2Matrix
@@ -35,6 +34,6 @@ __all__ = [
     "COOMatrix", "CSRMatrix", "EllMatrix", "SellMatrix", "CMRSMatrix",
     "HybMatrix", "TiledSpmv", "X2Matrix",
     "golden_spmv", "check_result", "default_x", "fp32_rel_tol",
-    "engine_rel_tol", "seg_engine_scale",
+    "fp32_check",
     "__version__",
 ]

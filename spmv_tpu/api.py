@@ -50,25 +50,12 @@ def load(path: str, format: str = "csr", *, synth: dict | None = None, **kwargs)
     """Read a MatrixMarket file (or synthesize, if it is a git-LFS pointer —
     as the reference's bundled matrices are, or missing) and convert.
     ``synth`` kwargs go to :func:`spmv_tpu.synth.synthetic_cant`; the rest
-    to the format's ``from_coo``.
-
-    Matrices beyond the resident-vector VMEM budget (~3M rows or ~3M
-    cols) automatically route to the slab×panel-tiled single-chip container
-    (:class:`spmv_tpu.big.TiledSpmv`) — the reference's only size limit
-    was device RAM (``coo.c:116-120``), so is ours."""
-    from spmv_tpu.big import TiledSpmv, fits_single_kernel
+    to the format's ``from_coo``."""
     from spmv_tpu.io.mmio import read_path_or_synthesize
 
     # the sym container wants the STORED triangle, not the expansion
     info, rows, cols, vals = read_path_or_synthesize(
         path, expand_symmetry=(format.lower() != "sym"), **(synth or {}))
-    if not fits_single_kernel(info.nrows, info.ncols):
-        if format.lower() == "sym":
-            raise NotImplementedError(
-                "symmetric triangle storage is a single-kernel container; "
-                "use TiledSpmv/dist on the expanded form for this size")
-        return TiledSpmv(format, info.nrows, info.ncols, rows, cols, vals,
-                         **kwargs)
     return from_coo(format, info.nrows, info.ncols, rows, cols, vals, **kwargs)
 
 
@@ -77,100 +64,10 @@ def spmv(a, x):
     return a.matvec(x)
 
 
-def _multi_rhs_fits(dev, R: int) -> bool:
-    """VMEM feasibility of the fused multi-RHS kernels for this plan —
-    the joint per-kernel budget of ``device.multi_rhs_fits``."""
-    from spmv_tpu.device import multi_rhs_fits, x_table_rows
-
-    return multi_rhs_fits(
-        R, x_table_rows(dev.ncols),
-        [(dev.chunk, dev.ns, dev.pack, hasattr(dev, "gidx"), dev.w_rows,
-          dev.out_rows, getattr(dev, "b2", None) is not None)])
-
-
-def _spmm_fused(a, X, R: int):
-    """Y = A @ X through the fused multi-RHS engines (one plan-stream
-    pass computes all R columns), or None when the container/shape is
-    out of the fused envelope.  Measured 1.19×/1.32× per vector at
-    R = 2/4 vs R separate passes (scripts/probe_spmm.py — the plan DMA
-    amortizes over R; past ``MULTI_RHS_MAX`` the per-vector time
-    saturates at the compute share and BSR is the right tool)."""
-    import jax.numpy as jnp
-
-    from spmv_tpu.device import x_to_table
-    from spmv_tpu.kernels.engines import (MULTI_RHS_MAX, panel_spmv_multi,
-                                          segmented_spmv_multi)
-
-    if R < 2 or R > MULTI_RHS_MAX:
-        return None
-    dev = getattr(a, "dev", None)
-    spill = getattr(a, "dev_spill", None)
-    if dev is None or not hasattr(dev, "fused"):  # engine containers only
-        return None
-    parts = []
-    if getattr(a, "panel_nnz", 1) > 0 or spill is None:
-        parts.append(dev)
-    if spill is not None and getattr(a, "spill_nnz", 0) > 0:
-        parts.append(spill)
-    if not all(_multi_rhs_fits(d, R) for d in parts):
-        return None
-
-    x2d = jnp.concatenate([x_to_table(X[:, j], a.ncols) for j in range(R)],
-                          axis=0)
-
-    def run(d):
-        fn = segmented_spmv_multi if hasattr(d, "gidx") else panel_spmv_multi
-        y = fn(d, x2d, R)  # (R·out_rows, 128)
-        return y.reshape(R, d.out_rows, -1)
-
-    ys = [run(d) for d in parts]
-    n = max(y.shape[1] for y in ys)
-    ys = [jnp.pad(y, ((0, 0), (0, n - y.shape[1]), (0, 0)))
-          if y.shape[1] < n else y for y in ys]
-    Y3 = sum(ys[1:], ys[0])  # (R, n, 128)
-    if getattr(a, "sorted_rows", False):
-        from spmv_tpu.kernels.engines import inverse_permute_blocks
-
-        cols = []
-        for r in range(R):
-            y2 = Y3[r]
-            if y2.shape[0] < 8:  # epilogue windows slice 8 table rows
-                y2 = jnp.pad(y2, ((0, 8 - y2.shape[0]), (0, 0)))
-            cols.append(inverse_permute_blocks(
-                a._perm_whi, a._perm_idx, y2).reshape(-1)[: a.nrows])
-        return jnp.stack(cols, axis=1)
-    return Y3.reshape(R, -1)[:, : a.nrows].T
-
-
 def spmm(a, X):
     """Y = A @ X for X of shape (ncols, R).
 
-    BSR computes this as one batched MXU matmul (the right tool for
-    R ≳ 32).  For 2 ≤ R ≤ ``engines.MULTI_RHS_MAX`` the Pallas engines
-    run a fused multi-RHS kernel — one plan-stream pass for all R
-    columns, measured 1.19×/1.32× per vector at R = 2/4
-    (scripts/probe_spmm.py; an earlier unrecorded "fused is slower"
-    claim was refuted by that probe).  Larger R (below BSR's fill
-    break-even) and the f32x2 containers run one SpMV per column.
-    """
-    import jax.numpy as jnp
-    import numpy as np
-
-    if hasattr(a, "matmat"):
-        return a.matmat(X)
-    if getattr(a, "x2", False):
-        # double-single containers take fp64 x and return fp64 y — an
-        # f32 cast here would zero every residual (xl == 0) and silently
-        # collapse the documented ~window·2⁻³⁸ accuracy to f32 grade
-        X = np.asarray(X, np.float64)
-        if X.ndim != 2 or X.shape[0] != a.ncols:
-            raise ValueError(f"X must be ({a.ncols}, R), got {X.shape}")
-        return np.stack([np.asarray(a.matvec(X[:, j]))
-                         for j in range(X.shape[1])], axis=1)
-    X = jnp.asarray(X, jnp.float32)
-    if X.ndim != 2 or X.shape[0] != a.ncols:
-        raise ValueError(f"X must be ({a.ncols}, R), got {X.shape}")
-    fused = _spmm_fused(a, X, X.shape[1])
-    if fused is not None:
-        return fused
-    return jnp.stack([a.matvec(X[:, j]) for j in range(X.shape[1])], axis=1)
+    Every matvec format gathers whole rows of ``X`` in one pass, so one
+    device program serves any R; BSR runs one batched dense tile matmul;
+    f32x2 containers take and return fp64."""
+    return a.matmat(X)

@@ -1,14 +1,9 @@
-"""Converted-format caching.
+"""Parsed-matrix caching.
 
 The reference re-parses the 60 MB .mtx text file from scratch on every run
-— three full parses per driver execution (SURVEY.md §3.5).  Two cache
-levels, both ``.npz``:
-
-* **triplets** keyed by a file content fingerprint (replaces the parse);
-* **device plans** keyed by a content hash of the builder inputs
-  (replaces the conversion) — enabled by :func:`set_plan_cache` and used
-  transparently by every ``build_*_plan`` call, including the sub-plans
-  HYB builds internally.
+— three full parses per driver execution (SURVEY.md §3.5).  Here the
+parsed triplets are kept as ``.npz``, keyed by a file content fingerprint,
+so a second run skips the parse.
 """
 
 from __future__ import annotations
@@ -20,54 +15,9 @@ import os
 import numpy as np
 
 __all__ = ["cache_key", "save_plan", "load_plan", "cached_convert",
-           "set_plan_cache", "plan_lookup", "plan_store"]
+           "setup_compile_cache"]
 
-_CACHE_VERSION = 4  # bump when plan layouts change (4: P-packed SegPlan)
-
-_PLAN_CACHE_DIR: str | None = None
-
-
-def set_plan_cache(cache_dir: str | None) -> None:
-    """Enable (or disable with None) transparent plan-build caching."""
-    global _PLAN_CACHE_DIR
-    _PLAN_CACHE_DIR = cache_dir
-
-
-def _plan_key(kind: str, rows, cols, vals, nrows: int, ncols: int,
-              chunk: int) -> str:
-    h = hashlib.sha256()
-    h.update(f"v{_CACHE_VERSION}|{kind}|{nrows}|{ncols}|{chunk}".encode())
-    for a in (rows, cols, vals):
-        a = np.ascontiguousarray(a)
-        h.update(str(a.dtype).encode())
-        h.update(a.tobytes())
-    return f"plan-{kind}-{h.hexdigest()[:24]}"
-
-
-def plan_lookup(kind: str, rows, cols, vals, nrows, ncols, chunk, plan_cls):
-    """Return the cached plan dataclass, or None (cache off / miss)."""
-    if _PLAN_CACHE_DIR is None:
-        return None
-    hit = load_plan(_PLAN_CACHE_DIR, _plan_key(kind, rows, cols, vals,
-                                               nrows, ncols, chunk))
-    if hit is None:
-        return None
-    meta, arrays = hit
-    return plan_cls(**arrays, **meta)
-
-
-def plan_store(kind: str, rows, cols, vals, nrows, ncols, chunk,
-               plan) -> None:
-    if _PLAN_CACHE_DIR is None:
-        return
-    from dataclasses import fields
-
-    meta, arrays = {}, {}
-    for f in fields(plan):
-        v = getattr(plan, f.name)
-        (arrays if isinstance(v, np.ndarray) else meta)[f.name] = v
-    save_plan(_PLAN_CACHE_DIR, _plan_key(kind, rows, cols, vals,
-                                         nrows, ncols, chunk), meta, arrays)
+_CACHE_VERSION = 5  # bump when the cached layout changes
 
 
 def _fingerprint(path: str) -> str:
@@ -112,8 +62,8 @@ def load_plan(cache_dir: str, key: str):
 
 def cached_convert(path: str, format: str, cache_dir: str | None = None,
                    **fmt_kwargs):
-    """Load + convert with npz caches of the raw triplets and the built
-    device plans.  Returns the format container."""
+    """Load + convert with an npz cache of the parsed triplets.  Returns
+    the format container."""
     from spmv_tpu.api import from_coo
     from spmv_tpu.io.mmio import read_path_or_synthesize
 
@@ -133,9 +83,21 @@ def cached_convert(path: str, format: str, cache_dir: str | None = None,
         nrows, ncols = info.nrows, info.ncols
         save_plan(cache_dir, key, {"nrows": nrows, "ncols": ncols},
                   {"rows": rows, "cols": cols, "vals": vals})
-    prev = _PLAN_CACHE_DIR
-    set_plan_cache(cache_dir)
-    try:
-        return from_coo(format, nrows, ncols, rows, cols, vals, **fmt_kwargs)
-    finally:
-        set_plan_cache(prev)
+    return from_coo(format, nrows, ncols, rows, cols, vals, **fmt_kwargs)
+
+
+def setup_compile_cache() -> str | None:
+    """Point JAX's persistent compilation cache at ``<checkout>/.jax_cache``
+    unless ``JAX_COMPILATION_CACHE_DIR`` is set — JAX reads that variable
+    itself, so then nothing is set here.  A fixed path matters: a
+    directory that moves from run to run is never found again.
+    Returns the path set, or None."""
+    if os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    import jax
+
+    path = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), ".jax_cache")
+    jax.config.update("jax_compilation_cache_dir", path)
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    return path

@@ -1,554 +1,302 @@
-"""Device-resident plan containers and x/y shape helpers.
+"""Device arrays of the sparse formats and the products over them.
 
-The measured Pallas fact that shapes this module (see docs/DESIGN.md): the
-grid pipeline sustains only ~67 GB/s **per input array** on the bench TPU,
-while distinct arrays stream concurrently (~530-690 GB/s at 14-27 arrays
-in-engine).  Each plan stream is therefore interleaved into several
-separate device arrays; one grid step fetches one **superchunk**
-(``ns·chunk`` sublane rows) over the concurrent DMAs.
+Every format keeps its canonical host arrays (``CSRMatrix.ptr/cols/vals``
+and so on) and builds ONE device representation from them: ``int32``
+indices and ``float32`` values.  The products:
 
-Both engines consume P-packed streams (see ``formats.base``): per value
-plane ``kva`` f32 arrays (plane-major tuple), one u8 array per ``lo``
-plane, a single shared u8 ``hi`` array, plus u8 ``gidx`` for the
-segmented engine.  Round 3 adds the **windowed y-reduction** streams: a
-per-sub-chunk ``meta`` row carrying each sublane row's y-window target
-``w`` (u8) and a prefetched per-sub-chunk window ``base_w`` — the kernels
-reduce every row into a ``w_rows``-row y window with one data-dependent
-0/1 matmul and a single dynamic RMW per sub-chunk, replacing round 2's
-per-subtile accumulate loop (measured +80 GB/s on the segmented engine)
-and its block-purity padding.
+* :class:`Csr` — row pointers, columns and values of row-sorted
+  nonzeros (csr, cmrs, HYB's spill, both passes of sym).  The product is
+  the row-block kernel of ``spmv_tpu.csr_kernel`` (Pallas, Triton route):
+  one program per block of rows, no atomics.  ``csr_kernel.csr_product``
+  says when it runs the plain-XLA reference (a ``segment_sum``)
+  instead.
+* :class:`Seg` — ``y = segment_sum(vals * x[cols], rows)`` over the
+  triplets in file order: COO, whose reference kernel is an atomic
+  scatter (``Coo.cl``).  On the GPU the sum adds with atomics, so its
+  order changes from run to run and COO results are not bitwise
+  deterministic (``spmv_tpu.oracle`` states the tolerance).
+* :class:`Panel` — padded ``(n, K)`` column and value slabs:
+  ``y = sum(vals * x[cols], axis=1)`` (ELL, HYB's panel, SELL's slices).
+* :class:`SumOf` — ``y = Σ parts(x)`` (HYB's panel + spill, sym).
+* :class:`Permuted` — ``y = concat(parts(x))[perm]`` (SELL-C-σ: slices
+  grouped by width, the σ-sort undone by one gather).
 
-The containers are jax pytrees: the split arrays are leaves, the geometry
-is static aux data, so ``jit(spmv)(dev, x2d)`` specializes per geometry.
+``x`` is a vector ``(ncols,)`` or a block ``(ncols, R)``: one pass serves
+any number of right-hand sides.
+
+Extended precision (``spmv_tpu.x2``): a container may carry ``vals_lo``,
+the float32 residual of each fp64 value.  The product then runs in fp64
+over ``hi + lo`` — the caller traces it inside ``jax.enable_x64``.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass, fields
+import dataclasses
+from dataclasses import dataclass
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
-from spmv_tpu.formats.base import (
-    LANES,
-    SUBLANES,
-    W_ALIGN,
-    W_CAP,
-    PanelPlan,
-    SegPlan,
-    cdiv,
-    round_up,
-    x_stripes,
-)
+from spmv_tpu.csr_kernel import REGULAR, block_shape, csr_product
 
-__all__ = ["DevPanel", "DevSeg", "x_table_rows", "x_to_table", "y_from_padded"]
-
-# (chunk, NS) choices.  SC = NS·chunk sublane rows per grid step.  The
-# round-2 sweep (scripts/probe_geom.py) measured (128,16)/(256,8)/(512,4)
-# within ±2% at identical VMEM footprint, so the pick minimizes superchunk
-# padding first and prefers the larger superchunk on ties.
-_GEOMETRIES = ((128, 16), (128, 8), (128, 4), (64, 2), (64, 1))
-
-# Scoped VMEM is 16 MB/core; the double-buffered stream blocks plus the
-# resident x table and y must fit with headroom for compute scratch.
-_VMEM_LIMIT = 14 * 1024 * 1024
-# Resident-vector cap = what the smallest geometry leaves free; beyond
-# this the matrix must be sharded.
-_VMEM_VECTOR_BUDGET = 12 * 1024 * 1024
-
-# Below this many streamed plan bytes the single-dispatch fused-RMW
-# kernel variant beats the streamed-partials pair: the epilogue
-# dispatch's fixed ramp outweighs the RMW serialization on short
-# streams.  Calibrated on chip (scripts/probe_small.py, power-law csr):
-# 2.9 MB/1 grid step: fused 7.7 µs vs 10.7 — +39%; ≥4.7 MB/3+ steps:
-# statistical tie at every size up to 62 MB (the RMW serialization of
-# DESIGN.md fact 9 does not bind on scattered plans).  4 MB keeps the
-# clear-win region fused and leaves production plans on the measured
-# streamed-partials design.
-FUSED_STREAM_BYTES_MAX = 4 * 1024 * 1024
+__all__ = ["Csr", "Seg", "Panel", "SumOf", "Permuted", "DeviceOperator",
+           "apply", "csr", "seg", "panel", "row_ranks", "nbytes", "slots",
+           "stack", "with_lo", "split_x2"]
 
 
-def _vector_bytes(nrows: int, ncols: int, x2: bool = False) -> int:
-    """VMEM-resident vector bytes.  f32: the x table lives in the MAIN
-    kernel, y only in the scatter epilogue (streamed partials, DESIGN.md
-    fact 9) — they need to fit separately, not together.  f32x2: the x2
-    kernels hold the (2S, 128) hi∥lo x table AND both (out_rows, 128)
-    y halves resident simultaneously (no streamed-partials variant), so
-    everything must fit together."""
-    y_bytes = 4 * cdiv(max(nrows, 1), LANES) * LANES
-    if x2:
-        return 2 * (_x_table_bytes(ncols) + y_bytes)
-    return max(_x_table_bytes(ncols), y_bytes)
-
-
-def _x_table_bytes(ncols: int) -> int:
-    return 4 * x_stripes(ncols) * LANES
-
-
-def _check_fits(nrows: int, ncols: int, x2: bool = False) -> None:
-    if _vector_bytes(nrows, ncols, x2) > _VMEM_VECTOR_BUDGET:
-        mode = " in f32x2 mode (hi∥lo x table + both y halves resident " \
-               "together — roughly a quarter of the f32 capacity)" \
-            if x2 else ""
-        raise ValueError(
-            f"matrix ({nrows} x {ncols}) exceeds the single-chip VMEM "
-            f"budget{mode} "
-            f"(resident x table in the main kernel / resident y in the "
-            f"scatter epilogue, ~{_VMEM_VECTOR_BUDGET // (4 * 1024 * 1024) * 2}M "
-            "rows or cols); "
-            "use the slab-x-panel tiled single-chip container "
-            "(spmv_tpu.big.TiledSpmv — spmv_tpu.load routes there "
-            "automatically) or partition over a mesh with "
-            "spmv_tpu.dist.RowShardedSpmv / RingShardedSpmv"
-            + (" (both shardings take dtype='f32x2')" if x2 else ""))
-
-
-def pick_geometry(tm_rows: int, pack: int = 4, seg: bool = True,
-                  nrows: int = 0, ncols: int = 0,
-                  x2: bool = False, banked: bool = False) -> tuple[int, int]:
-    """(chunk, NS) minimizing superchunk padding among geometries whose
-    double-buffered stream blocks fit scoped VMEM next to the resident
-    x/y vectors (a 786k-row matrix passed the old vector-only check, then
-    OOMed compiling at 17 MB — the geometry must shrink as the vectors
-    grow; P=8 blocks at (128,16) measured 21.04M > the 16M limit)."""
-    # f32: only x is resident in the main kernel; f32x2: the 2S-row
-    # table and both y halves are (see _vector_bytes)
-    vec = _vector_bytes(nrows, ncols, x2) if x2 else _x_table_bytes(ncols)
-    # per-step stream bytes across all arrays, double-buffered:
-    # sc·128·(~5P+2 B/quad slot) per superchunk of sc rows
-    bpq = (5 * pack + 2) if seg else (5 * pack + 1)
-    if banked:  # the two-bank b2 plane streams too
-        bpq += 1
-    if x2:  # double-single: a second f32 value-plane set streams too
-        bpq += 4 * pack
-
-    def fits(chunk, ns):
-        return 2 * chunk * ns * LANES * bpq + vec <= _VMEM_LIMIT
-
-    # Full-concurrency tier: chunk 128, ns >= 4 keeps the 16-way value
-    # split (measured within ±2% of each other) — among those that fit
-    # VMEM, minimize superchunk padding, tie -> larger superchunk.
-    if tm_rows >= 512:
-        cands = [(round_up(max(tm_rows, c * n), c * n), -(c * n), (c, n))
-                 for c, n in _GEOMETRIES if c == 128 and fits(c, n)]
-        if cands:
-            return min(cands)[2]
-    # Tiny matrices (or VMEM squeezed by huge resident vectors): small
-    # superchunks; padding dominates concurrency at this scale.
-    return (64, 2) if tm_rows >= 128 and fits(64, 2) else (64, 1)
-
-
-def seg_kva(pack: int, ns: int) -> int:
-    """vals arrays per plane: keep ~16 value arrays total for DMA
-    concurrency (the per-array ~67 GB/s cap scales with distinct arrays;
-    16 arrays measured ~+10-20% aggregate over 8 on the bench chip,
-    scripts/probe_geom.py), bounded by the sub-chunks per step."""
-    return max(min(16 // pack, ns), 1)
-
-
-def split_stream(x: np.ndarray, sc: int, k: int) -> tuple[np.ndarray, ...]:
-    """Interleave a row-padded (TM,128) stream into k equal device arrays."""
-    tm = x.shape[0]
-    assert tm % sc == 0
-    x3 = x.reshape(tm // sc, k, sc // k, LANES)
-    return tuple(np.ascontiguousarray(x3[:, j]).reshape(-1, LANES)
-                 for j in range(k))
-
-
-def _pad_rows(x: np.ndarray, rows: int) -> np.ndarray:
-    if x.shape[0] == rows:
-        return x
-    return np.pad(x, [(0, rows - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
-
-
-def window_span(row_block: np.ndarray, tm: int, chunk: int) -> int:
-    """Max y-block span over the sub-chunks of a ``tm``-row stream — the
-    minimum window height the stream needs.  The dist layer computes this
-    per shard to pick ONE ``w_rows`` for the unified plans."""
-    rb = np.asarray(row_block, dtype=np.int64)
-    if rb.size < tm:
-        fill = rb[-1] if rb.size else 0
-        rb = np.concatenate([rb, np.full(tm - rb.size, fill, np.int64)])
-    rb2 = rb[:tm].reshape(-1, chunk)
-    return int((rb2.max(axis=1) - rb2.min(axis=1)).max()) + 1 if rb2.size else 1
-
-
-def window_meta(row_block: np.ndarray, tm: int, chunk: int, ns: int,
-                nrows: int, w_rows: int | None = None):
-    """Per-sub-chunk y-window metadata from the plan's per-row y block:
-    ``w[j, r] = row_block[j·chunk + r] − base_w[j]`` (u8, the plan bounds
-    every 128-aligned window's span below ``W_CAP``) and the static window
-    height ``w_rows`` (max span, rounded to whole sublane groups).
-
-    The meta stream is laid out ``round_up(ns,8)`` rows per grid step
-    (sub-chunk k of step i at row ``i·rps + k``) so the kernel's blocked
-    spec stays 8-row aligned and the in-kernel row index is static —
-    Mosaic rejects dynamic sublane offsets it cannot prove 8-aligned.
-    Returns ``(meta (nsteps·rps,128) u8, base_w (nsc,) i32, w_rows,
-    out_rows)``; ``out_rows ≥ NB`` so the dynamic ``ds(base_w, w_rows)``
-    RMW always lands in bounds (rows past NB accumulate only zeros)."""
-    NB = cdiv(max(nrows, 1), LANES)
-    rb = np.asarray(row_block, dtype=np.int64)
-    if rb.size < tm:  # trailing pads replicate the last row's block
-        fill = rb[-1] if rb.size else 0
-        rb = np.concatenate([rb, np.full(tm - rb.size, fill, np.int64)])
-    rb2 = rb[:tm].reshape(-1, chunk)
-    bmin = rb2.min(axis=1)
-    bmax = rb2.max(axis=1)
-    span = int((bmax - bmin).max()) + 1 if rb2.size else 1
-    assert span <= W_CAP
-    if w_rows is None:
-        w_rows = max(round_up(span, W_ALIGN), SUBLANES)
-    assert w_rows >= span
-    out_rows = max(NB, w_rows)
-    base = np.minimum(bmin, out_rows - w_rows)
-    w = rb2 - base[:, None]
-    assert w.min(initial=0) >= 0 and w.max(initial=0) < 256
-    nsc = rb2.shape[0]
-    rps = round_up(ns, SUBLANES)  # meta rows per grid step (8-aligned)
-    nsteps = nsc // ns
-    meta = np.zeros((nsteps, rps, LANES), dtype=np.uint8)
-    meta[:, :ns, :chunk] = w.astype(np.uint8).reshape(nsteps, ns, chunk)
-    return (meta.reshape(nsteps * rps, LANES), base.astype(np.int32),
-            w_rows, out_rows)
-
-
-def split_packed_arrays(arrays: dict, chunk: int, ns: int, pack: int,
-                        seg: bool, nrows: int,
-                        w_rows: int | None = None) -> dict:
-    """Packed-plan splitter: ``vals``/``lo`` are (TM, P, 128) plane stacks;
-    plane pp of vals splits ``kva`` ways into ``vals{pp*kva+j}``, plane pp
-    of lo becomes ``lo{pp}``, ``hi`` (and ``gidx`` for seg plans) stay
-    whole; ``row_block`` becomes the windowed-reduction ``meta``/``base_w``
-    pair (see ``window_meta``)."""
-    sc = chunk * ns
-    tm = round_up(max(arrays["vals"].shape[0], sc), sc)
-    kva = seg_kva(pack, ns)
-    out = {}
-    v = _pad_rows(arrays["vals"], tm)
-    lo = _pad_rows(arrays["lo"], tm)
-    for pp in range(pack):
-        for j, part in enumerate(split_stream(
-                np.ascontiguousarray(v[:, pp, :]), sc, kva)):
-            out[f"vals{pp * kva + j}"] = part
-        out[f"lo{pp}"] = np.ascontiguousarray(lo[:, pp, :])
-    out["hi"] = _pad_rows(arrays["hi"], tm)
-    if seg:
-        out["gidx"] = _pad_rows(arrays["gidx"], tm)
-        if arrays.get("b2") is not None:
-            out["b2"] = _pad_rows(arrays["b2"], tm)
-    meta, base_w, w_rows, out_rows = window_meta(
-        arrays["row_block"], tm, chunk, ns, nrows, w_rows)
-    out["meta"] = meta
-    out["base_w"] = base_w
-    out["w_rows"] = w_rows
-    out["out_rows"] = out_rows
-    out["sub_base"] = _pad_rows(arrays["sub_base"], tm // SUBLANES)
-    return out
-
-
-def split_vals_planes(vals: np.ndarray, chunk: int, ns: int,
-                      pack: int) -> dict:
-    """Split ONLY the value planes of a residual (f32x2 lo) plan into
-    ``vals{j}`` arrays.  The residual plan's index/meta streams are
-    byte-identical to the hi plan's (packing depends only on the sparsity
-    pattern), so a second full ``split_packed_arrays`` would re-derive
-    and discard them — doubling host conversion cost at scale."""
-    sc = chunk * ns
-    tm = round_up(max(vals.shape[0], sc), sc)
-    kva = seg_kva(pack, ns)
-    out = {}
-    v = _pad_rows(vals, tm)
-    for pp in range(pack):
-        for j, part in enumerate(split_stream(
-                np.ascontiguousarray(v[:, pp, :]), sc, kva)):
-            out[f"vals{pp * kva + j}"] = part
-    return out
-
-
-def multi_rhs_fits(R: int, x_rows: int, parts) -> bool:
-    """JOINT VMEM budget of the fused multi-RHS kernels (round-3 advisor:
-    three independent caps let an envelope-edge matrix pass yet exceed
-    scoped VMEM at compile time instead of falling back to the column
-    loop).  ``parts`` is an iterable of ``(chunk, ns, pack, seg, w_rows,
-    out_rows)`` — one entry per engine pass (two for a split container).
-
-    * main kernel: R resident x tables + double-buffered per-step stream
-      blocks + the double-buffered (ns·R·W, 128) partials output block;
-    * scatter epilogue: R·out_rows resident y + the partials block.
-    """
-    xtab = R * x_rows * LANES * 4
-    for chunk, ns, pack, seg, w_rows, out_rows, *rest in parts:
-        bpq = (5 * pack + 2) if seg else (5 * pack + 1)
-        if rest and rest[0]:  # banked: the b2 plane streams too
-            bpq += 1
-        blocks = 2 * chunk * ns * LANES * bpq  # double-buffered streams
-        pblock = 2 * ns * R * w_rows * LANES * 4
-        if xtab + blocks + pblock > _VMEM_LIMIT:
-            return False
-        if R * out_rows * LANES * 4 + pblock > _VMEM_LIMIT:
-            return False
-    return True
-
-
-def _fused_predicate(dev) -> bool:
-    """Shared DevPanel/DevSeg fused-dispatch predicate: short streams take
-    the single-dispatch fused-RMW kernel variant (static at trace time —
-    derived from array shapes, part of the jit cache key).  Unlike the
-    streamed-partials pair (x table resident in the main kernel, y only
-    in the epilogue), the fused kernel holds BOTH — so x+y must fit the
-    resident-vector budget together with the double-buffered step."""
-    if dev.stream_bytes > FUSED_STREAM_BYTES_MAX:
-        return False
-    vec = _x_table_bytes(dev.ncols) + 4 * dev.out_rows * LANES
-    nsteps = max(dev.vals[0].shape[0] * dev.kva
-                 // (dev.chunk * dev.ns), 1)
-    blocks = 2 * dev.stream_bytes // nsteps  # double-buffered step
-    return vec + blocks <= _VMEM_LIMIT
-
-
-def _aux_traffic_bytes(dev) -> int:
-    """Shared DevPanel/DevSeg epilogue traffic: the (nsc·W,128) window
-    partials write out of the main kernel and read back into the
-    scatter-add, plus the y write (DESIGN.md fact 9).  The fused
-    small-stream path skips the partials round-trip; the x2 engines
-    always RMW in-kernel and write (yh, yl)."""
-    if dev.vals_lo:
-        return 2 * dev.out_rows * LANES * 4
-    if dev.fused:
-        return dev.out_rows * LANES * 4
-    nsc = (dev.vals[0].shape[0] * dev.kva) // dev.chunk
-    return (2 * nsc * dev.w_rows + dev.out_rows) * LANES * 4
+def _values(vals, vals_lo, x):
+    """The value plane(s) in x's precision, broadcast over x's trailing
+    (right-hand-side) axes."""
+    if vals_lo is None:
+        v = vals.astype(x.dtype)
+    else:
+        v = vals.astype(jnp.float64) + vals_lo.astype(jnp.float64)
+    return v.reshape(v.shape + (1,) * (x.ndim - 1))
 
 
 @dataclass(frozen=True)
-class DevPanel:
-    vals: tuple  # P·kva × (TM/kva, 128) f32, plane-major
-    lo: tuple  # P × (TM, 128) u8
-    hi: object  # (TM, 128) u8
-    meta: object  # (TM/chunk, 128) u8 — per-row y-window target w
-    base_w: object  # (TM/chunk,) i32 — y-window base per sub-chunk
-    sub_base: object  # (TM/8,) i32 — x window base stripe per subtile
-    chunk: int
-    ns: int  # sub-chunks per superchunk step
-    pack: int  # P — elements per quad slot
-    w_rows: int  # y-window height of the in-kernel reduction
-    out_rows: int  # rows of the padded (out_rows, 128) y
-    nrows: int
-    ncols: int
-    nnz: int
-    # double-single mode: the residual value planes (empty = f32 mode;
-    # the pytree treedef difference re-specializes the jitted kernels)
-    vals_lo: tuple = ()
+class Csr:
+    ptr: object  # (nrows+1,) int32 row pointers
+    cols: object  # (max(nnz, 1),) int32, row-major
+    vals: object  # (max(nnz, 1),) float32
+    vals_lo: object = None  # float32 residual plane, or None
+    block: tuple = REGULAR  # kernel block shape (csr_kernel.block_shape)
 
-    @classmethod
-    def from_plan(cls, p: PanelPlan, p_lo: PanelPlan | None = None
-                  ) -> "DevPanel":
-        import jax.numpy as jnp
-
-        x2 = p_lo is not None
-        _check_fits(p.nrows, p.ncols, x2=x2)
-        chunk, ns = pick_geometry(p.vals.shape[0], p.pack, seg=False,
-                                  nrows=p.nrows, ncols=p.ncols, x2=x2)
-        d = split_packed_arrays(
-            {"vals": p.vals, "lo": p.lo, "hi": p.hi,
-             "row_block": p.row_block, "sub_base": p.sub_base},
-            chunk, ns, p.pack, seg=False, nrows=p.nrows)
-        kva = seg_kva(p.pack, ns)
-        vals_lo = ()
-        if x2:
-            dl = split_vals_planes(p_lo.vals, chunk, ns, p.pack)
-            vals_lo = tuple(jnp.asarray(dl[f"vals{j}"])
-                            for j in range(p.pack * kva))
-        return cls(
-            vals=tuple(jnp.asarray(d[f"vals{j}"])
-                       for j in range(p.pack * kva)),
-            lo=tuple(jnp.asarray(d[f"lo{j}"]) for j in range(p.pack)),
-            hi=jnp.asarray(d["hi"]),
-            meta=jnp.asarray(d["meta"]),
-            base_w=jnp.asarray(d["base_w"]),
-            sub_base=jnp.asarray(d["sub_base"]),
-            chunk=chunk, ns=ns, pack=p.pack,
-            w_rows=d["w_rows"], out_rows=d["out_rows"],
-            nrows=p.nrows, ncols=p.ncols, nnz=p.nnz, vals_lo=vals_lo)
-
-    @property
-    def kva(self) -> int:
-        return len(self.vals) // self.pack
-
-    @property
-    def out_blocks(self) -> int:
-        return cdiv(max(self.nrows, 1), LANES)
-
-    @property
-    def element_slots(self) -> int:
-        return self.vals[0].shape[0] * self.kva * LANES * self.pack
-
-    @property
-    def stream_bytes(self) -> int:
-        arrs = (list(self.vals) + list(self.vals_lo) + list(self.lo)
-                + [self.hi, self.meta])
-        return sum(int(np.prod(a.shape)) * a.dtype.itemsize for a in arrs)
-
-    @property
-    def fused(self) -> bool:
-        """See ``_fused_predicate``."""
-        return _fused_predicate(self)
-
-    @property
-    def aux_traffic_bytes(self) -> int:
-        """See ``_aux_traffic_bytes``."""
-        return _aux_traffic_bytes(self)
+    def __call__(self, x):
+        return csr_product(self.ptr, self.cols, self.vals, self.vals_lo, x,
+                           block=self.block)
 
 
 @dataclass(frozen=True)
-class DevSeg:
-    vals: tuple  # P·kva × (TM/kva, 128) f32, plane-major
-    lo: tuple  # P × (TM, 128) u8
-    hi: object  # (TM, 128) u8
-    gidx: object  # (TM, 128) u8 (filled running max)
-    meta: object  # (TM/chunk, 128) u8 — per-row y-window target w
-    base_w: object  # (TM/chunk,) i32 — y-window base per sub-chunk
-    sub_base: object  # (TM/8,) i32
-    chunk: int
-    ns: int  # sub-chunks per superchunk step
-    pack: int  # P — elements per quad slot
-    w_rows: int  # y-window height of the in-kernel reduction
-    out_rows: int  # rows of the padded (out_rows, 128) y
-    nrows: int
-    ncols: int
-    nnz: int
-    # double-single mode: the residual value planes (empty = f32 mode)
-    vals_lo: tuple = ()
-    # two-bank layout (``formats.bank``): the combined bank-1 stripe map
-    # + per-plane selector stream; None = single-bank plan.  The treedef
-    # difference re-specializes the jitted kernels on the banked path.
-    b2: object = None
+class Seg:
+    rows: object  # (nnz,) int32 output row of each nonzero
+    cols: object  # (nnz,) int32
+    vals: object  # (nnz,) float32
+    vals_lo: object = None  # (nnz,) float32 residual plane, or None
+    nrows: int = 0
 
-    @classmethod
-    def from_plan(cls, p: SegPlan, p_lo: SegPlan | None = None) -> "DevSeg":
-        import jax.numpy as jnp
+    def __call__(self, x):
+        prod = _values(self.vals, self.vals_lo, x) * x[self.cols]
+        return jax.ops.segment_sum(prod, self.rows, num_segments=self.nrows)
 
-        x2 = p_lo is not None
-        if x2 and p.b2 is not None:
-            raise ValueError("the two-bank segmented layout has no f32x2 "
-                             "engine — build the x2 plans with bank=False")
-        _check_fits(p.nrows, p.ncols, x2=x2)
-        chunk, ns = pick_geometry(p.vals.shape[0], p.pack, seg=True,
-                                  nrows=p.nrows, ncols=p.ncols, x2=x2,
-                                  banked=p.b2 is not None)
-        d = split_packed_arrays(
-            {"vals": p.vals, "lo": p.lo, "hi": p.hi, "gidx": p.gidx,
-             "b2": p.b2, "row_block": p.row_block, "sub_base": p.sub_base},
-            chunk, ns, p.pack, seg=True, nrows=p.nrows)
-        kva = seg_kva(p.pack, ns)
-        vals_lo = ()
-        if x2:
-            dl = split_vals_planes(p_lo.vals, chunk, ns, p.pack)
-            vals_lo = tuple(jnp.asarray(dl[f"vals{j}"])
-                            for j in range(p.pack * kva))
-        return cls(
-            vals=tuple(jnp.asarray(d[f"vals{j}"])
-                       for j in range(p.pack * kva)),
-            lo=tuple(jnp.asarray(d[f"lo{j}"]) for j in range(p.pack)),
-            hi=jnp.asarray(d["hi"]),
-            gidx=jnp.asarray(d["gidx"]),
-            meta=jnp.asarray(d["meta"]),
-            base_w=jnp.asarray(d["base_w"]),
-            sub_base=jnp.asarray(d["sub_base"]),
-            chunk=chunk, ns=ns, pack=p.pack,
-            w_rows=d["w_rows"], out_rows=d["out_rows"],
-            nrows=p.nrows, ncols=p.ncols, nnz=p.nnz, vals_lo=vals_lo,
-            b2=(jnp.asarray(d["b2"]) if "b2" in d else None))
+
+@dataclass(frozen=True)
+class Panel:
+    cols: object  # (n, K) int32; pad slots point at column 0
+    vals: object  # (n, K) float32; pad slots hold 0
+    vals_lo: object = None
+
+    def __call__(self, x):
+        return jnp.sum(_values(self.vals, self.vals_lo, x) * x[self.cols],
+                       axis=1)
+
+
+@dataclass(frozen=True)
+class SumOf:
+    parts: tuple
+
+    def __call__(self, x):
+        return sum((p(x) for p in self.parts[1:]), self.parts[0](x))
+
+
+@dataclass(frozen=True)
+class Permuted:
+    parts: tuple  # Panels, in slab order
+    perm: object  # (nrows,) int32: row r's position in concat(parts)
+
+    def __call__(self, x):
+        return jnp.concatenate([p(x) for p in self.parts], axis=0)[self.perm]
+
+
+jax.tree_util.register_dataclass(
+    Csr, data_fields=["ptr", "cols", "vals", "vals_lo"],
+    meta_fields=["block"])
+jax.tree_util.register_dataclass(
+    Seg, data_fields=["rows", "cols", "vals", "vals_lo"],
+    meta_fields=["nrows"])
+jax.tree_util.register_dataclass(
+    Panel, data_fields=["cols", "vals", "vals_lo"], meta_fields=[])
+jax.tree_util.register_dataclass(SumOf, data_fields=["parts"],
+                                 meta_fields=[])
+jax.tree_util.register_dataclass(Permuted, data_fields=["parts", "perm"],
+                                 meta_fields=[])
+
+
+@jax.jit
+def apply(dev, x):
+    """y = A·x (or A·X) for any device container; one compile per
+    container structure and shape."""
+    return dev(x)
+
+
+def nbytes(dev) -> int:
+    """Device bytes of a container: what one product streams, padding
+    included (x and y not counted)."""
+    return sum(int(a.nbytes) for a in jax.tree.leaves(dev))
+
+
+def slots(dev) -> int:
+    """Padded element slots (nonzeros plus padding) of a container."""
+    if isinstance(dev, (Csr, Seg, Panel)):
+        return int(dev.vals.size)
+    kids = getattr(dev, "parts", getattr(dev, "tiles", None))
+    if isinstance(kids, tuple):
+        return sum(slots(k) for k in kids)
+    return int(kids.size)  # dense block tiles
+
+
+def split_x2(vals):
+    """fp64 values → (hi, lo) float32 planes with hi + lo ≈ vals to
+    ~2⁻⁴⁸ relative."""
+    v64 = np.asarray(vals, np.float64)
+    hi = v64.astype(np.float32)
+    return hi, (v64 - hi.astype(np.float64)).astype(np.float32)
+
+
+# ---------------------------------------------------------------- builders
+
+
+def csr(rows, cols, vals, nrows: int) -> Csr:
+    """Csr container from row-sorted triplets.  An empty matrix keeps one
+    inert slot (column 0, value 0) so every array has a real shape."""
+    rows = np.asarray(rows, np.int64)
+    if rows.size and (np.diff(rows) < 0).any():
+        raise ValueError("csr container needs triplets sorted by row")
+    lengths = np.bincount(rows, minlength=nrows)
+    ptr = np.zeros(nrows + 1, np.int64)
+    np.cumsum(lengths, out=ptr[1:])
+    n = max(rows.size, 1)
+    c = np.zeros(n, np.int32)
+    v = np.zeros(n, np.float32)
+    c[:rows.size] = cols
+    v[:rows.size] = vals
+    return Csr(ptr=jnp.asarray(ptr.astype(np.int32)), cols=jnp.asarray(c),
+               vals=jnp.asarray(v), block=block_shape(lengths))
+
+
+def seg(rows, cols, vals, nrows: int) -> Seg:
+    return Seg(rows=jnp.asarray(np.asarray(rows, np.int32)),
+               cols=jnp.asarray(np.asarray(cols, np.int32)),
+               vals=jnp.asarray(np.asarray(vals, np.float32)),
+               nrows=int(nrows))
+
+
+def row_ranks(rows: np.ndarray, nrows: int) -> np.ndarray:
+    """Rank of each element within its row, for triplets sorted by row."""
+    rows = np.asarray(rows, np.int64)
+    starts = np.zeros(nrows + 1, np.int64)
+    np.cumsum(np.bincount(rows, minlength=nrows), out=starts[1:])
+    return np.arange(rows.size, dtype=np.int64) - starts[rows]
+
+
+def panel(rows, cols, vals, n: int, K: int, ranks=None) -> Panel:
+    """(n, K) slabs from row-sorted triplets whose rank within their row
+    is below K (``ranks`` defaults to :func:`row_ranks`)."""
+    rows = np.asarray(rows, np.int64)
+    k = row_ranks(rows, n) if ranks is None else ranks
+    c2 = np.zeros((n, K), np.int32)
+    v2 = np.zeros((n, K), np.float32)
+    c2[rows, k] = cols
+    v2[rows, k] = vals
+    return Panel(cols=jnp.asarray(c2), vals=jnp.asarray(v2))
+
+
+def with_lo(hi, lo):
+    """``hi``'s container with ``lo``'s value planes as its residuals —
+    ``lo`` is the same format built from the residual values, and the
+    layouts depend only on the sparsity pattern, so the two agree slot
+    for slot."""
+    if isinstance(hi, (Csr, Seg, Panel)):
+        return dataclasses.replace(hi, vals_lo=lo.vals)
+    return dataclasses.replace(
+        hi, parts=tuple(with_lo(h, l) for h, l in zip(hi.parts, lo.parts)))
+
+
+class DeviceOperator:
+    """matvec / matmat for a format container holding ``dev``,
+    ``nrows`` and ``ncols``."""
+
+    def matvec(self, x):
+        x = jnp.asarray(x, jnp.float32)
+        if x.ndim != 1 or x.shape[0] != self.ncols:
+            raise ValueError(f"x has {x.size} entries, matrix has "
+                             f"{self.ncols} columns")
+        return apply(self.dev, x)
+
+    def matmat(self, X):
+        X = jnp.asarray(X, jnp.float32)
+        if X.ndim != 2 or X.shape[0] != self.ncols:
+            raise ValueError(f"X must be ({self.ncols}, R), got {X.shape}")
+        return apply(self.dev, X)
+
+    def __matmul__(self, x):
+        return self.matvec(x)
 
     @property
-    def kva(self) -> int:
-        return len(self.vals) // self.pack
+    def padded_bytes(self) -> int:
+        return nbytes(self.dev)
 
     @property
-    def out_blocks(self) -> int:
-        return cdiv(max(self.nrows, 1), LANES)
-
-    @property
-    def element_slots(self) -> int:
-        return self.vals[0].shape[0] * self.kva * LANES * self.pack
-
-    @property
-    def stream_bytes(self) -> int:
-        arrs = (list(self.vals) + list(self.vals_lo) + list(self.lo)
-                + [self.hi, self.gidx, self.meta]
-                + ([self.b2] if self.b2 is not None else []))
-        return sum(int(np.prod(a.shape)) * a.dtype.itemsize for a in arrs)
-
-    @property
-    def fused(self) -> bool:
-        """See ``_fused_predicate``."""
-        return _fused_predicate(self)
-
-    @property
-    def aux_traffic_bytes(self) -> int:
-        """See ``_aux_traffic_bytes``."""
-        return _aux_traffic_bytes(self)
+    def padded_slots(self) -> int:
+        return slots(self.dev)
 
 
-def _register(cls, statics):
-    leaf_names = [f.name for f in fields(cls) if f.name not in statics]
-
-    def flatten(d):
-        return (tuple(getattr(d, n) for n in leaf_names),
-                tuple(getattr(d, n) for n in statics))
-
-    def unflatten(aux, children):
-        kw = dict(zip(leaf_names, children))
-        kw.update(zip(statics, aux))
-        return cls(**kw)
-
-    jax.tree_util.register_pytree_node(cls, flatten, unflatten)
+# ------------------------------------------------------- stacking (dist)
 
 
-_STATICS = ("chunk", "ns", "pack", "w_rows", "out_rows", "nrows", "ncols",
-            "nnz")
-_register(DevPanel, _STATICS)
-_register(DevSeg, _STATICS)
-
-
-def x_table_rows(ncols: int) -> int:
-    """Rows of the (S,128) x table: at least 8 so every (8,128) window
-    slice stays in bounds."""
-    return x_stripes(ncols)
-
-
-def x_to_table(x, ncols: int):
-    """(ncols,) → zero-padded (S,128) VMEM table. jit-composable."""
-    import jax.numpy as jnp
-
-    S = x_table_rows(ncols)
-    xf = jnp.asarray(x, jnp.float32).reshape(-1)
-    if xf.shape[0] != ncols:
-        raise ValueError(f"x has {xf.shape[0]} entries, matrix has {ncols} columns")
-    pad = S * LANES - xf.shape[0]
-    if pad:
-        xf = jnp.pad(xf, (0, pad))
-    return xf.reshape(S, LANES)
-
-
-def y_from_padded(y2d, nrows: int):
-    """padded y (any 2-D layout) → (nrows,). jit-composable."""
-    return y2d.reshape(-1)[:nrows]
-
-
-def x_to_table_x2(x, ncols: int) -> np.ndarray:
-    """Double-single x table: (2S, 128) f32 with the hi halves in rows
-    [0, S) and the residuals (x − f32(x), computed in f64 on host) in
-    rows [S, 2S).  The x2 kernels slice both windows per 8-row group."""
-    S = x_table_rows(ncols)
-    x64 = np.asarray(x, dtype=np.float64).reshape(-1)
-    if x64.shape[0] != ncols:
-        raise ValueError(
-            f"x has {x64.shape[0]} entries, matrix has {ncols} columns")
-    xh = x64.astype(np.float32)
-    xl = (x64 - xh.astype(np.float64)).astype(np.float32)
-    out = np.zeros((2 * S, LANES), dtype=np.float32)
-    out[:S].reshape(-1)[:ncols] = xh
-    out[S:].reshape(-1)[:ncols] = xl
+def _pad_to(a: np.ndarray, shape, fill=0) -> np.ndarray:
+    out = np.full(shape, fill, dtype=a.dtype)
+    out[tuple(slice(0, s) for s in a.shape)] = a
     return out
+
+
+def _stack_arrays(arrs, fill=0):
+    arrs = [np.asarray(a) for a in arrs]
+    shape = tuple(max(s) for s in zip(*(a.shape for a in arrs)))
+    return np.stack([_pad_to(a, shape, fill) for a in arrs])
+
+
+def stack(devs):
+    """One container whose leaves carry a leading shard axis, from
+    per-shard containers of the same format: every shard is padded to the
+    largest with inert slots (column 0, value 0) so one program serves
+    them all.  Leaves are host arrays; the caller places them."""
+    d0 = devs[0]
+    if isinstance(d0, Permuted):
+        return _stack_permuted(devs)
+    if isinstance(d0, SumOf):
+        return SumOf(parts=tuple(stack(ps)
+                                 for ps in zip(*(d.parts for d in devs))))
+    leaves = {f.name: _stack_arrays([getattr(d, f.name) for d in devs])
+              for f in dataclasses.fields(d0)
+              if hasattr(getattr(d0, f.name), "shape")}
+    return dataclasses.replace(d0, **leaves)
+
+
+def _stack_permuted(devs):
+    """SELL shards group their slices by different widths: align them on
+    the union of widths (a shard without a width gets an empty slab) and
+    re-point each shard's ``perm`` into the padded concatenation."""
+    widths = sorted({int(p.cols.shape[1]) for d in devs for p in d.parts})
+    empty = {w: Panel(cols=np.zeros((0, w), np.int32),
+                      vals=np.zeros((0, w), np.float32),
+                      vals_lo=(None if devs[0].parts[0].vals_lo is None
+                               else np.zeros((0, w), np.float32)))
+             for w in widths}
+    by_width = [{int(p.cols.shape[1]): p for p in d.parts} for d in devs]
+    rows_of = [max(int(bw.get(w, empty[w]).cols.shape[0]) for bw in by_width)
+               for w in widths]
+    new_start = np.concatenate([[0], np.cumsum(rows_of)])
+    perms = []
+    for d in devs:
+        sizes = [int(p.cols.shape[0]) for p in d.parts]
+        old_start = np.concatenate([[0], np.cumsum(sizes)])
+        perm = np.asarray(d.perm, np.int64)
+        part = np.searchsorted(old_start, perm, side="right") - 1
+        target = np.array([widths.index(int(p.cols.shape[1]))
+                           for p in d.parts], np.int64)
+        perms.append(new_start[target[part]] + perm - old_start[part])
+    parts = tuple(stack([bw.get(w, empty[w]) for bw in by_width])
+                  for w in widths)
+    return Permuted(parts=parts, perm=_stack_arrays(perms).astype(np.int32))

@@ -1,28 +1,22 @@
-"""Chunked-gather row-sharded SpMV — comm/compute overlap for the
-all-gather form (round-5 verdict item 3).
+"""Chunked-gather row-sharded SpMV — communication/compute overlap for
+the all-gather form.
 
-``RowShardedSpmv(gather_x=True)`` all-gathers the WHOLE x table, then
-computes: the collective and the kernel serialize by construction.
-``ChunkedRowSpmv`` splits the gather into C chunks and the local plan
-into C matching column sub-plans; each step issues the NEXT chunk's
-all-gather first (data-independent of this step's kernel) and computes
-on the chunk gathered in the previous step — the structural double
-buffer that lets XLA's latency-hiding scheduler run ICI transfers
-concurrently with Pallas compute.  Peak per-device gathered-x memory is
-O(ncols/C) instead of O(ncols), and total gather traffic is unchanged
-(C gathers of 1/C each).
+``RowShardedSpmv(gather_x=True)`` all-gathers the WHOLE x, then computes:
+the collective and the product serialize by construction.
+``ChunkedRowSpmv`` splits the gather into C chunks and each device's row
+slab into C matching column sub-matrices; each step issues the NEXT
+chunk's all-gather first (data-independent of this step's product) and
+computes on the chunk gathered in the previous step, so XLA's scheduler
+may run the transfer concurrently with the compute.  Peak per-device
+gathered-x memory is O(ncols/C) instead of O(ncols), and total gather
+traffic is unchanged (C gathers of 1/C each).
 
-Chunk c of the gather is ``all_gather`` of every device's LOCAL table
-rows [c·s, (c+1)·s) (s = S/(D·C)), which concatenates device-major: the
-gathered block holds global stripe t = d·(S/D) + l at row d·s + (l−c·s).
-Sub-plan c therefore covers the columns whose stripe satisfies
-``l mod (S/D) ∈ [c·s, (c+1)·s)``, renumbered to that layout.
-
-The reference has no distribution at all (SURVEY.md §2.3); SURVEY §7
-lists comm/compute overlap among the hard parts ("measure, don't
-assume") — this class is the implemented structure; single-chip boxes
-still bound multi-host efficiency with the analytic ICI model
-(``bench.scaling``), now labeled as such.
+x is padded to S = round_up(ncols, D·C) entries; device o holds entries
+[o·S/D, (o+1)·S/D).  Chunk c of the gather is the ``all_gather`` of every
+device's local entries [c·s, (c+1)·s) (s = S/(D·C)), which concatenates
+device-major: global column t = o·S/D + l (l the local offset) lands at
+o·s + (l − c·s).  Sub-matrix c therefore holds the columns with
+``l // s == c``, renumbered to that layout.
 """
 
 from __future__ import annotations
@@ -30,223 +24,82 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from spmv_tpu.device import x_table_rows
-from spmv_tpu.dist.sharded import (_ShardStatics, _make_dev, _unify_plans,
-                                    put_sharded)
-from spmv_tpu.formats.base import LANES, cdiv, round_up
-from spmv_tpu.kernels.engines import panel_spmv, segmented_spmv
+from spmv_tpu.device import stack
+from spmv_tpu.dist.sharded import _Sharded, local, put_sharded, shard_dev
+from spmv_tpu.formats.base import cdiv, round_up
 
 __all__ = ["ChunkedRowSpmv"]
 
 
-class ChunkedRowSpmv:
+class ChunkedRowSpmv(_Sharded):
     """y = A·x, A row-partitioned, x row-sharded and all-gathered in C
     chunks interleaved with per-chunk compute (the overlapped form of
     ``RowShardedSpmv(gather_x=True)``)."""
 
     def __init__(self, format: str, nrows: int, ncols: int, rows, cols,
                  vals, mesh: Mesh, *, chunks: int = 4, **fmt_kwargs):
-        from spmv_tpu.api import FORMATS
-        from spmv_tpu.formats.base import panel_pack_for, seg_pack_for
-
         format = format.lower()
         if format == "bsr":
             raise NotImplementedError(
                 "chunked-gather BSR not supported; use "
                 "RowShardedSpmv('bsr', ...)")
-        self.is_sell = format in ("sell", "sell_c_sigma")
-        self.is_hyb = format == "hyb"
-        cls = FORMATS[format]
-        self.mesh = mesh
-        self.axis = mesh.axis_names[0]
-        D = mesh.shape[self.axis]
-        C = max(int(chunks), 1)
+        self.format, self.mesh = format, mesh
+        self.axis = axis = mesh.axis_names[0]
+        self.nrows, self.ncols = nrows, ncols
+        D = self.D = mesh.shape[axis]
+        C = self.C = max(int(chunks), 1)
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
-
-        # shard plans unify into one stacked stream layout; the two-bank
-        # layout (formats.bank) has no unified path — force it off
-        if format in ("csr", "coo", "cmrs", "hyb"):
-            fmt_kwargs = dict(fmt_kwargs, bank=False)
-        if format in ("csr", "coo", "cmrs") and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=seg_pack_for(rows, cols, nrows, ncols))
-        elif format == "ell" and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=panel_pack_for(rows, cols, nrows, ncols))
-        elif self.is_hyb:
-            fmt_kwargs = dict(fmt_kwargs)
-            fmt_kwargs.setdefault("pack",
-                                  seg_pack_for(rows, cols, nrows, ncols))
-            fmt_kwargs.setdefault("panel_pack",
-                                  panel_pack_for(rows, cols, nrows, ncols))
-
-        rps = round_up(max(cdiv(nrows, D), LANES), LANES)
-        # S: global x-table rows, divisible by D·C so every local chunk is
-        # one contiguous slice of the device's x rows
-        S = round_up(x_table_rows(ncols), D * C)
-        s_loc = S // (D * C)  # local table rows per chunk
-        self.S, self.C, self.D, self.rps = S, C, D, rps
-        self.s_loc = s_loc
-        spd = S // D  # stripes per device
-
-        self._perm_whi = self._perm_idx = None
-        rps_pad = rps
-        if self.is_sell:
-            from spmv_tpu.formats.sell import (DEFAULT_SIGMA,
-                                               sigma_sort_tables)
-
-            sigma = min(fmt_kwargs.pop("sigma", None) or DEFAULT_SIGMA, rps)
-            rows = rows.copy()
-            whis, idxs, any_sorted = [], [], False
-            for d in range(D):
-                sel = (rows >= d * rps) & (rows < (d + 1) * rps)
-                rs, sorted_, _p, whi, idx, rp = sigma_sort_tables(
-                    rows[sel] - d * rps, cols[sel], rps, ncols, sigma)
-                rows[sel] = rs + d * rps
-                whis.append(whi)
-                idxs.append(idx)
-                any_sorted = any_sorted or sorted_
-                rps_pad = rp
-            if any_sorted:
-                self._perm_whi = np.stack(whis)
-                self._perm_idx = np.stack(idxs)
-            cls = FORMATS["ell"]
-            fmt_kwargs.pop("pack", None)
-            fmt_kwargs["pack"] = panel_pack_for(rows, cols, nrows, ncols)
-        if format in ("ell", "sell", "sell_c_sigma"):
-            fmt_kwargs = dict(fmt_kwargs, split=False)
-        self.rps_pad = rps_pad
-
-        # D×C sub-plans: (row slab d) × (gather chunk c).  Columns of
-        # chunk c: stripe t = o·spd + l with l in [c·s, (c+1)·s), gathered
-        # at row o·s_loc + (l − c·s_loc·c)… renumber via the maps below.
-        stripe = cols >> 7
-        owner = stripe // spd  # device owning the stripe
-        lrow = stripe % spd  # local table row on that device
-        chunk_of = lrow // s_loc
-        new_stripe = owner * s_loc + (lrow % s_loc)
-        new_cols = (new_stripe << 7) | (cols & (LANES - 1))
-        ncols_chunk = max(D * s_loc, 8) * LANES  # gathered-block columns
-        shards = []
+        self.rps = rps = cdiv(max(nrows, 1), D)
+        self.S = S = round_up(max(ncols, 1), D * C)
+        self.s = s = S // (D * C)  # local entries per chunk
+        owner, lcol = cols // (S // D), cols % (S // D)
+        chunk_of = lcol // s
+        new_cols = owner * s + lcol % s
+        devs = []
         for d in range(D):
             rsel = (rows >= d * rps) & (rows < (d + 1) * rps)
             for c in range(C):
                 sel = rsel & (chunk_of == c)
-                shards.append(cls.from_coo(
-                    rps_pad, ncols_chunk, rows[sel] - d * rps,
-                    new_cols[sel], vals[sel], **fmt_kwargs))
-        arrays, chunk, ns, self.is_seg, pack, w_rows, out_rows = _unify_plans(
-            [s.plan for s in shards])
-        self.st_spill = None
-        if self.is_hyb:
-            from spmv_tpu.formats.base import _empty_seg
-
-            spill = [sh.spill_plan if sh.spill_plan is not None
-                     else _empty_seg(rps_pad, ncols_chunk, chunk,
-                                     fmt_kwargs["pack"])
-                     for sh in shards]
-            (sp_arrays, sp_chunk, sp_ns, _, sp_pack, sp_w,
-             sp_out) = _unify_plans(spill)
-            arrays.update({f"sp_{k}": v for k, v in sp_arrays.items()})
-            self.st_spill = _ShardStatics(
-                chunk=sp_chunk, ns=sp_ns, is_seg=True, is_row=True,
-                nrows=nrows, ncols=ncols, rows_per_shard=rps, n_shards=D,
-                pack=sp_pack, w_rows=sp_w, out_rows=sp_out,
-            )
-        arrays = {k: v.reshape(D, C, *v.shape[1:]) for k, v in arrays.items()}
-        if self._perm_whi is not None:
-            arrays["perm_whi"] = self._perm_whi
-            arrays["perm_idx"] = self._perm_idx
-        self.st = _ShardStatics(
-            chunk=chunk, ns=ns, is_seg=self.is_seg, is_row=True,
-            nrows=nrows, ncols=ncols, rows_per_shard=rps, n_shards=D,
-            pack=pack, w_rows=w_rows, out_rows=out_rows,
-        )
-        sharded = NamedSharding(mesh, P(self.axis))
-        self.arrays = {k: put_sharded(v, sharded) for k, v in arrays.items()}
+                devs.append(shard_dev(format, False, rps, D * s,
+                                      rows[sel] - d * rps, new_cols[sel],
+                                      vals[sel], **fmt_kwargs))
+        spec = NamedSharding(mesh, P(axis))
+        self.arrays = jax.tree.map(
+            lambda a: put_sharded(a.reshape((D, C) + a.shape[1:]), spec),
+            stack(devs))
         self._fn = self._build()
 
     def _build(self):
-        st, axis, mesh = self.st, self.axis, self.mesh
-        st_spill = self.st_spill
-        C, s_loc, D = self.C, self.s_loc, self.D
-        names = list(self.arrays)
-        sub_names = [n for n in names if n not in ("perm_whi", "perm_idx")]
-        has_perm = "perm_whi" in names
-        nb = self.rps_pad // LANES
-        nb_true = self.rps // LANES
-        g_rows = D * s_loc  # gathered chunk rows
-        g_pad = max(8 - g_rows, 0)  # kernels slice (8,128) x windows
+        axis, C, s, nrows = self.axis, self.C, self.s, self.nrows
 
-        def shard_fn(x_local, *plan):
-            local = dict(zip(names, (p[0] for p in plan)))
+        def shard_fn(x_local, devs):
+            subs = local(devs)  # leaves (C, ...)
 
             def gather(c):
-                xc = x_local[c * s_loc:(c + 1) * s_loc, :]
-                g = jax.lax.all_gather(xc, axis, axis=0, tiled=True)
-                return jnp.pad(g, ((0, g_pad), (0, 0))) if g_pad else g
-
-            def compute(c, g):
-                sub = {n: local[n][c] for n in sub_names}
-                dev = _make_dev(sub, st)
-                part = (segmented_spmv(dev, g) if st.is_seg
-                        else panel_spmv(dev, g))[:nb]
-                if st_spill is not None:
-                    sp = {n[3:]: v for n, v in sub.items()
-                          if n.startswith("sp_")}
-                    part = part + segmented_spmv(
-                        _make_dev(sp, st_spill), g)[:nb]
-                return part
+                return jax.lax.all_gather(x_local[c * s:(c + 1) * s], axis,
+                                          axis=0, tiled=True)
 
             # software pipeline: chunk c+1's all-gather is issued before
-            # chunk c's kernel and depends only on x_local, so transfer
-            # and compute are schedulable concurrently (C is small and
-            # static — the loop unrolls).
-            y = jnp.zeros((nb, LANES), jnp.float32)
+            # chunk c's product and depends only on x_local (C is small
+            # and static — the loop unrolls)
+            y = 0
             g = gather(0)
             for c in range(C):
                 g_nxt = gather(c + 1) if c + 1 < C else None
-                y = y + compute(c, g)
+                y = y + jax.tree.map(lambda a: a[c], subs)(g)
                 g = g_nxt
-            if has_perm:  # SELL: undo the slab's σ-sort once, at the end
-                from spmv_tpu.kernels.engines import inverse_permute_blocks
+            return y
 
-                y2 = jnp.pad(y, ((0, 8 - nb), (0, 0))) if nb < 8 else y
-                y = inverse_permute_blocks(
-                    local["perm_whi"], local["perm_idx"],
-                    y2).reshape(-1, LANES)
-            return y[:nb_true]
+        fn = shard_map(shard_fn, mesh=self.mesh,
+                       in_specs=(P(axis), P(axis)), out_specs=P(axis))
+        return jax.jit(lambda x, devs: fn(x, devs)[:nrows])
 
-        return jax.jit(shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(P(axis, None),) + (P(axis),) * len(names),
-            out_specs=P(axis, None),
-            check_vma=False,  # pallas_call out_shape carries no vma info
-        ))
-
-    def matvec(self, x):
-        xf = jnp.asarray(x, jnp.float32).reshape(-1)
-        if xf.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"x has {xf.shape[0]} entries, matrix has "
-                f"{self.st.ncols} columns")
-        xf = jnp.pad(xf, (0, self.S * LANES - xf.shape[0]))
-        xt = put_sharded(xf.reshape(self.S, LANES),
-                         NamedSharding(self.mesh, P(self.axis, None)))
-        y = self._fn(xt, *self.arrays.values())
-        return y.reshape(-1)[: self.st.nrows]
-
-    __matmul__ = matvec
-
-    @property
-    def nrows(self) -> int:
-        return self.st.nrows
-
-    @property
-    def ncols(self) -> int:
-        return self.st.ncols
+    def _x_in(self, x):
+        x = jnp.asarray(x)
+        x = jnp.pad(x, [(0, self.S - x.shape[0])] + [(0, 0)] * (x.ndim - 1))
+        return put_sharded(x, NamedSharding(self.mesh, P(self.axis)))

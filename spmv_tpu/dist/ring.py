@@ -1,18 +1,17 @@
 """Ring-rotated SpMV — the SpMV counterpart of ring attention.
 
 ``RowShardedSpmv(gather_x=True)`` materializes the whole x on every device
-(all-gather).  For x beyond one chip's memory budget the ring form keeps x
-**column-blocked**: device ``d`` owns row-slab ``d`` of A (split into D
-column-block sub-plans) and starts with x block ``d``; each of the D ring
-steps multiplies the sub-plan matching the currently-held x block into the
-local y accumulator, then ``ppermute``s the x block to the next neighbor
-over ICI.  Peak per-device x memory is O(ncols/D) instead of O(ncols), and
-XLA overlaps each step's collective with the next step's compute where the
-schedule allows.
+(all-gather).  The ring form keeps x **column-blocked**: device ``d`` owns
+row-slab ``d`` of A (split into D column-block sub-matrices) and starts
+with x block ``d``; each of the D ring steps multiplies the sub-matrix
+matching the currently-held x block into the local y accumulator and
+``ppermute``s the x block to the next neighbor.  Peak per-device x memory
+is O(ncols/D) instead of O(ncols).  The ``ppermute`` of the held block is
+issued before, and independent of, the step's product, so XLA may overlap
+the transfer with the compute.
 
 The reference has nothing comparable (no distribution at all, SURVEY.md
-§2.3); this is the "large-nnz / large-x scaling" analog of sequence
-parallelism called for by the survey's parallelism checklist.
+§2.3); this is the "large-x scaling" analog of sequence parallelism.
 """
 
 from __future__ import annotations
@@ -20,332 +19,82 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from spmv_tpu.device import x_table_rows
-from spmv_tpu.dist.sharded import (_ShardStatics, _make_dev, _unify_plans,
-                                    put_sharded)
-from spmv_tpu.formats.base import LANES, cdiv, round_up
-from spmv_tpu.kernels.engines import panel_spmv, segmented_spmv
+from spmv_tpu.device import stack
+from spmv_tpu.dist.sharded import _Sharded, local, put_sharded, shard_dev
+from spmv_tpu.formats.base import cdiv
 
 __all__ = ["RingShardedSpmv"]
 
 
-class RingShardedSpmv:
+class RingShardedSpmv(_Sharded):
     """y = A·x, A row-partitioned × column-blocked, x rotated on a ring."""
 
     def __init__(self, format: str, nrows: int, ncols: int, rows, cols, vals,
                  mesh: Mesh, **fmt_kwargs):
-        from spmv_tpu.api import FORMATS
-
         format = format.lower()
         if format == "bsr":
             raise NotImplementedError(
                 "ring-sharded BSR not supported (block-dense container); "
-                "use RowShardedSpmv('bsr', ...) or csr/coo/cmrs/ell/sell/"
-                "hyb")
-        self.is_sell = format in ("sell", "sell_c_sigma")
-        self.is_hyb = format == "hyb"
-        cls = FORMATS[format]
-        self.mesh = mesh
-        self.axis = mesh.axis_names[0]
-        D = mesh.shape[self.axis]
+                "use RowShardedSpmv('bsr', ...) or a matvec format")
+        self.format, self.mesh = format, mesh
+        self.axis = axis = mesh.axis_names[0]
+        self.nrows, self.ncols = nrows, ncols
+        D = self.D = mesh.shape[axis]
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
-
-        from spmv_tpu.formats.base import panel_pack_for, seg_pack_for
-
-        # shard plans unify into one stacked stream layout; the two-bank
-        # layout (formats.bank) has no unified path — force it off
-        if format in ("csr", "coo", "cmrs", "hyb"):
-            fmt_kwargs = dict(fmt_kwargs, bank=False)
-        if format in ("csr", "coo", "cmrs") and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=seg_pack_for(rows, cols, nrows, ncols))
-        elif format == "ell" and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=panel_pack_for(rows, cols, nrows, ncols))
-        elif self.is_hyb:
-            fmt_kwargs = dict(fmt_kwargs)
-            fmt_kwargs.setdefault("pack",
-                                  seg_pack_for(rows, cols, nrows, ncols))
-            fmt_kwargs.setdefault("panel_pack",
-                                  panel_pack_for(rows, cols, nrows, ncols))
-        rps = round_up(max(cdiv(nrows, D), LANES), LANES)
-        cps = round_up(max(cdiv(ncols, D), LANES), LANES)
-        self._perm_whi = self._perm_idx = None
-        rps_pad = rps
-        if self.is_sell:
-            # ONE σ-sort per row slab, shared by the slab's D column-block
-            # sub-plans (each sub-plan sorting its own block would
-            # accumulate incompatibly-permuted partials on the ring).
-            from spmv_tpu.formats.sell import (DEFAULT_SIGMA,
-                                               sigma_sort_tables)
-
-            sigma = min(fmt_kwargs.pop("sigma", None) or DEFAULT_SIGMA, rps)
-            rows = rows.copy()
-            whis, idxs, any_sorted = [], [], False
-            for d in range(D):
-                sel = (rows >= d * rps) & (rows < (d + 1) * rps)
-                rs, sorted_, _p, whi, idx, rp = sigma_sort_tables(
-                    rows[sel] - d * rps, cols[sel], rps, ncols, sigma)
-                rows[sel] = rs + d * rps
-                whis.append(whi)
-                idxs.append(idx)
-                any_sorted = any_sorted or sorted_
-                rps_pad = rp  # same for every slab (depends on rps, sigma)
-            if any_sorted:
-                self._perm_whi = np.stack(whis)
-                self._perm_idx = np.stack(idxs)
-            cls = FORMATS["ell"]  # sub-plans: plain panels on sorted rows
-            fmt_kwargs.pop("pack", None)
-            fmt_kwargs["pack"] = panel_pack_for(rows, cols, nrows, ncols)
-        if format in ("ell", "sell", "sell_c_sigma"):
-            # ring sub-plans build pure panels (one engine pass per step)
-            fmt_kwargs = dict(fmt_kwargs, split=False)
-        # D×D sub-plans: (row slab d) × (column block j), unified together
-        # so one stacked array set serves every (d, j).
-        shards = []
+        self.rps = rps = cdiv(max(nrows, 1), D)
+        self.cps = cps = cdiv(max(ncols, 1), D)
+        # D×D sub-matrices: (row slab d) × (column block j)
+        devs = []
         for d in range(D):
             for j in range(D):
                 sel = ((rows >= d * rps) & (rows < (d + 1) * rps)
                        & (cols >= j * cps) & (cols < (j + 1) * cps))
-                shards.append(cls.from_coo(
-                    rps_pad, cps, rows[sel] - d * rps, cols[sel] - j * cps,
-                    vals[sel], **fmt_kwargs))
-        arrays, chunk, ns, self.is_seg, pack, w_rows, out_rows = _unify_plans(
-            [s.plan for s in shards])
-        self.st_spill = None
-        if self.is_hyb:
-            from spmv_tpu.formats.base import _empty_seg
-
-            spill = [s.spill_plan if s.spill_plan is not None
-                     else _empty_seg(rps_pad, cps, chunk, fmt_kwargs["pack"])
-                     for s in shards]
-            (sp_arrays, sp_chunk, sp_ns, _, sp_pack, sp_w,
-             sp_out) = _unify_plans(spill)
-            arrays.update({f"sp_{k}": v for k, v in sp_arrays.items()})
-            self.st_spill = _ShardStatics(
-                chunk=sp_chunk, ns=sp_ns, is_seg=True, is_row=True,
-                nrows=nrows, ncols=ncols, rows_per_shard=rps, n_shards=D,
-                pack=sp_pack, w_rows=sp_w, out_rows=sp_out,
-            )
-        # (D·D, ...) -> (D, D, ...): leading axis = device, second = block.
-        arrays = {k: v.reshape(D, D, *v.shape[1:]) for k, v in arrays.items()}
-        if self._perm_whi is not None:
-            arrays["perm_whi"] = self._perm_whi
-            arrays["perm_idx"] = self._perm_idx
-        self.st = _ShardStatics(
-            chunk=chunk, ns=ns, is_seg=self.is_seg, is_row=True,
-            nrows=nrows, ncols=ncols, rows_per_shard=rps, n_shards=D,
-            pack=pack, w_rows=w_rows, out_rows=out_rows,
-        )
-        self.rps, self.cps, self.D = rps, cps, D
-        self.rps_pad = rps_pad
-        sharded = NamedSharding(mesh, P(self.axis))
-        self.arrays = {
-            k: put_sharded(v, sharded) for k, v in arrays.items()
-        }
-        self.S_local = x_table_rows(cps)
+                devs.append(shard_dev(format, False, rps, cps,
+                                      rows[sel] - d * rps,
+                                      cols[sel] - j * cps, vals[sel],
+                                      **fmt_kwargs))
+        spec = NamedSharding(mesh, P(axis))
+        # (D·D, ...) -> (D, D, ...): leading axis = device, second = block
+        self.arrays = jax.tree.map(
+            lambda a: put_sharded(a.reshape((D, D) + a.shape[1:]), spec),
+            stack(devs))
         self._fn = self._build()
 
     def _build(self):
-        st, axis, mesh, D = self.st, self.axis, self.mesh, self.D
-        st_spill = self.st_spill
-        S_local = self.S_local
-        names = list(self.arrays)
-        ring_names = [n for n in names if n not in ("perm_whi", "perm_idx")]
-        has_perm = "perm_whi" in names
-        # nb_pad: blocks per σ-padded slab (== rps//128 for non-SELL)
-        nb = self.rps_pad // LANES
+        axis, D, nrows = self.axis, self.D, self.nrows
 
-        def shard_fn(x_blk, *plan):
-            # local views: x_blk (1, S_local, 128); plan arrays (1, D, ...)
-            local = dict(zip(names, (p[0] for p in plan)))
+        def shard_fn(x_blk, devs):
+            blocks = local(devs)  # leaves (D, ...): this slab's D blocks
             my = jax.lax.axis_index(axis)
 
             def step(k, carry):
-                x2d, y = carry
+                x, y = carry
                 j = jax.lax.rem(my - k + D, D)  # block held at step k
-                # double buffer (round-5 verdict 3): the ppermute of the
-                # held block is issued FIRST and consumes only x2d, so the
-                # transfer is data-independent of this step's compute and
-                # XLA's latency-hiding scheduler can run them concurrently
-                # (compute reads the held copy; the permuted block is only
-                # needed by step k+1).
                 x_nxt = jax.lax.ppermute(
-                    x2d, axis, [(i, (i + 1) % D) for i in range(D)])
-                sub = {n: jax.lax.dynamic_index_in_dim(local[n], j, axis=0,
-                                                       keepdims=False)
-                       for n in ring_names}
-                dev = _make_dev(sub, st)
-                part = (segmented_spmv(dev, x2d) if st.is_seg
-                        else panel_spmv(dev, x2d))[:nb]
-                if st_spill is not None:  # HYB: the segmented spill part
-                    sp = {n[3:]: v for n, v in sub.items()
-                          if n.startswith("sp_")}
-                    part = part + segmented_spmv(
-                        _make_dev(sp, st_spill), x2d)[:nb]
-                return x_nxt, y + part
+                    x, axis, [(i, (i + 1) % D) for i in range(D)])
+                sub = jax.tree.map(
+                    lambda a: jax.lax.dynamic_index_in_dim(
+                        a, j, axis=0, keepdims=False), blocks)
+                return x_nxt, y + sub(x)
 
-            y0 = jnp.zeros((nb, LANES), jnp.float32)
-            _, y = jax.lax.fori_loop(0, D, step, (x_blk[0], y0))
-            if has_perm:  # SELL: undo the slab's σ-sort once, at the end
-                from spmv_tpu.kernels.engines import inverse_permute_blocks
-
-                y2 = jnp.pad(y, ((0, 8 - nb), (0, 0))) if nb < 8 else y
-                y = inverse_permute_blocks(
-                    local["perm_whi"], local["perm_idx"],
-                    y2).reshape(-1, LANES)[:nb]
+            x = x_blk[0]
+            y0 = jax.lax.pcast(jnp.zeros((self.rps,) + x.shape[1:], x.dtype),
+                               (axis,), to="varying")
+            _, y = jax.lax.fori_loop(0, D, step, (x, y0))
             return y
 
-        return jax.jit(shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(P(axis, None, None),) + (P(axis),) * len(names),
-            out_specs=P(axis, None),
-            check_vma=False,  # pallas_call out_shape carries no vma info
-        ))
+        fn = shard_map(shard_fn, mesh=self.mesh,
+                       in_specs=(P(axis), P(axis)), out_specs=P(axis))
+        return jax.jit(lambda x, devs: fn(x, devs)[:nrows])
 
-    def matvec(self, x):
-        xf = jnp.asarray(x, jnp.float32).reshape(-1)
-        if xf.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"x has {xf.shape[0]} entries, matrix has {self.st.ncols} columns")
-        D, cps = self.D, self.cps
-        xf = jnp.pad(xf, (0, D * cps - xf.shape[0]))
-        xb = xf.reshape(D, cps)
-        pad = self.S_local * LANES - cps
-        if pad:
-            xb = jnp.pad(xb, ((0, 0), (0, pad)))
-        xb = xb.reshape(D, self.S_local, LANES)
-        xb = put_sharded(xb, NamedSharding(self.mesh, P(self.axis)))
-        y = self._fn(xb, *self.arrays.values())
-        # per-slab σ padding: keep the first rps true rows of each slab
-        # (y blocks are 128-lane rows: nb·128 values = rps_pad per slab)
-        y = y.reshape(D, self.rps_pad)[:, : self.rps]
-        return y.reshape(-1)[: self.st.nrows]
-
-    __matmul__ = matvec
-
-    @property
-    def nrows(self) -> int:
-        return self.st.nrows
-
-    @property
-    def ncols(self) -> int:
-        return self.st.ncols
-
-    def _multi_fits(self, rhs: int) -> bool:
-        """Per-shard VMEM envelope of the fused multi-RHS ring (R stacked
-        LOCAL x tables ride the ring as one carry) — the
-        joint per-kernel budget of ``device.multi_rhs_fits``, covering
-        both parts of a split plan."""
-        from spmv_tpu.device import multi_rhs_fits
-
-        parts = [(st.chunk, st.ns, st.pack, st.is_seg, st.w_rows,
-                  st.out_rows)
-                 for st in filter(None, (self.st, self.st_spill))]
-        return multi_rhs_fits(rhs, self.S_local, parts)
-
-    def _build_multi(self, rhs: int):
-        """Fused multi-RHS ring: each step multiplies the held x block of
-        ALL R columns through one plan-stream pass, then ppermutes the
-        whole (R·S_local, 128) stack — D collectives total instead of
-        R·D (DESIGN.md fact 12)."""
-        from spmv_tpu.kernels.engines import (panel_spmv_multi,
-                                              segmented_spmv_multi)
-
-        st, axis, mesh, D = self.st, self.axis, self.mesh, self.D
-        st_spill = self.st_spill
-        names = list(self.arrays)
-        ring_names = [n for n in names if n not in ("perm_whi", "perm_idx")]
-        has_perm = "perm_whi" in names
-        nb = self.rps_pad // LANES
-
-        def shard_fn(x_blk, *plan):
-            local = dict(zip(names, (p[0] for p in plan)))
-            my = jax.lax.axis_index(axis)
-
-            def step(k, carry):
-                x2d, y = carry  # x2d (rhs·S_local, 128); y (rhs, nb, 128)
-                j = jax.lax.rem(my - k + D, D)
-                # double buffer: transfer issued before (and independent
-                # of) the compute on the held copy — see _build.step
-                x_nxt = jax.lax.ppermute(
-                    x2d, axis, [(i, (i + 1) % D) for i in range(D)])
-                sub = {n: jax.lax.dynamic_index_in_dim(local[n], j, axis=0,
-                                                       keepdims=False)
-                       for n in ring_names}
-                dev = _make_dev(sub, st)
-                fn = segmented_spmv_multi if st.is_seg else panel_spmv_multi
-                part = fn(dev, x2d, rhs).reshape(
-                    rhs, st.out_rows, LANES)[:, :nb]
-                if st_spill is not None:  # HYB: the segmented spill part
-                    sp = {n[3:]: v for n, v in sub.items()
-                          if n.startswith("sp_")}
-                    part = part + segmented_spmv_multi(
-                        _make_dev(sp, st_spill), x2d, rhs).reshape(
-                            rhs, st_spill.out_rows, LANES)[:, :nb]
-                return x_nxt, y + part
-
-            y0 = jnp.zeros((rhs, nb, LANES), jnp.float32)
-            _, y = jax.lax.fori_loop(0, D, step, (x_blk[0], y0))
-            if has_perm:  # SELL: undo the slab's σ-sort per column
-                from spmv_tpu.kernels.engines import inverse_permute_blocks
-
-                cols = []
-                for r in range(rhs):
-                    y2 = (jnp.pad(y[r], ((0, 8 - nb), (0, 0)))
-                          if nb < 8 else y[r])
-                    cols.append(inverse_permute_blocks(
-                        local["perm_whi"], local["perm_idx"],
-                        y2).reshape(-1, LANES)[:nb])
-                y = jnp.stack(cols)
-            return y
-
-        return jax.jit(shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(P(axis, None, None),) + (P(axis),) * len(names),
-            out_specs=P(None, axis, None),
-            check_vma=False,
-        ))
-
-    def spmm(self, X):
-        """Ring-sharded SpMM: Y = A @ X for X (ncols, R).
-
-        For 2 ≤ R ≤ ``engines.MULTI_RHS_MAX`` (within the per-shard VMEM
-        envelope) all R columns' x blocks rotate as ONE ring carry and
-        each step runs one fused plan-stream pass — D ppermutes total
-        instead of R·D.  Otherwise one ring-rotated matvec per column."""
-        from spmv_tpu.api import spmm as _spmm
-        from spmv_tpu.kernels.engines import MULTI_RHS_MAX
-
-        Xa = np.asarray(X)
-        R = Xa.shape[1] if Xa.ndim == 2 else 0
-        if R < 2 or R > MULTI_RHS_MAX or not self._multi_fits(R):
-            return _spmm(self, X)
-        if Xa.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"X must be ({self.st.ncols}, R), got {Xa.shape}")
-        if not hasattr(self, "_multi_fns"):
-            self._multi_fns = {}
-        fn = self._multi_fns.get(R)
-        if fn is None:
-            fn = self._multi_fns[R] = self._build_multi(R)
-        D, cps, S_local = self.D, self.cps, self.S_local
-        xb = np.zeros((D, R * S_local, LANES), np.float32)
-        for r in range(R):
-            col = np.zeros(D * cps, np.float32)
-            col[: self.st.ncols] = np.asarray(Xa[:, r], np.float32)
-            blocks = np.zeros((D, S_local * LANES), np.float32)
-            blocks[:, :cps] = col.reshape(D, cps)
-            xb[:, r * S_local:(r + 1) * S_local] = blocks.reshape(
-                D, S_local, LANES)
-        xs = put_sharded(jnp.asarray(xb),
-                         NamedSharding(self.mesh, P(self.axis)))
-        Y3 = self._multi_fns[R](xs, *self.arrays.values())
-        # (R, D·nb, 128) → strip each slab's σ padding, then true rows
-        Y = jnp.asarray(Y3).reshape(R, D, self.rps_pad)[:, :, : self.rps]
-        return Y.reshape(R, -1)[:, : self.st.nrows].T
+    def _x_in(self, x):
+        x = jnp.asarray(x)
+        x = jnp.pad(x, [(0, self.D * self.cps - x.shape[0])]
+                    + [(0, 0)] * (x.ndim - 1))
+        return put_sharded(x.reshape((self.D, self.cps) + x.shape[1:]),
+                           NamedSharding(self.mesh, P(self.axis)))

@@ -1,70 +1,37 @@
-"""Multi-chip SpMV via shard_map over a device mesh.
+"""Multi-device SpMV via shard_map over a 1-D device mesh.
 
 The reference has no distribution at all (SURVEY.md §2.3); this layer is
-the framework's scaling dimension, per BASELINE.json's north star:
+the framework's scaling dimension:
 
 * **Row partition** (``RowShardedSpmv``): each device owns a contiguous
-  slab of matrix rows (its own single-chip format plan) and computes its
-  y slab — y comes out sharded, no collective on y.  x is either
-  replicated (``gather_x=False``) or row-sharded and **all-gathered over
-  ICI** inside the shard (``gather_x=True`` — the BASELINE.json CMRS
-  config).
+  slab of matrix rows and computes its y slab — y comes out sharded, no
+  collective on y.  x is either replicated (``gather_x=False``) or
+  row-sharded and all-gathered inside the shard (``gather_x=True``).
 * **Column partition** (``ColShardedSpmv``): each device owns a column
-  slab of A and the matching x slab (for x beyond one chip's VMEM),
-  computes a full-length partial y, and ``psum``s — the tensor-parallel
-  analog for SpMV.
+  slab of A and the matching x slab, computes a full-length partial y,
+  and ``psum``s.
 
-All shards share identical static shapes and one device-stream geometry
-(plans padded to the max across shards, then split into the concurrent-DMA
-arrays of ``spmv_tpu.device``), so one jitted shard_map serves every
-device.  Works on a CPU mesh (``--xla_force_host_platform_device_count``)
-with the kernels in interpret mode — that is how the tests and the
-driver's multi-chip dry run execute.
+Every shard is an ordinary format container over its slab (the format's
+own product, ``spmv_tpu.device``); the shards are stacked along
+a leading device axis, padded to one shape with inert slots
+(``device.stack``), so one jitted ``shard_map`` serves every device.
+``x`` may be a vector or an (ncols, R) block: the same program runs SpMM.
+With ``dtype="f32x2"`` the shards carry fp64 (hi, lo) value planes and the
+product runs in fp64 (``spmv_tpu.x2``).
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 from jax import shard_map
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-from spmv_tpu.device import (
-    DevPanel,
-    DevSeg,
-    pick_geometry,
-    seg_kva,
-    split_packed_arrays,
-    split_vals_planes,
-    window_span,
-    x_table_rows,
-)
-from spmv_tpu.formats.base import (
-    LANES,
-    cdiv,
-    panel_pack_for,
-    round_up,
-    seg_pack_for,
-)
-from spmv_tpu.kernels.engines import (
-    inverse_permute_blocks,
-    panel_spmv,
-    segmented_spmv,
-)
+from spmv_tpu.device import stack
+from spmv_tpu.formats.base import cdiv
 
-__all__ = ["RowShardedSpmv", "ColShardedSpmv"]
-
-_PANEL_FORMATS = {"ell", "sell", "sell_c_sigma"}
-# BSR's plan-less block-dense container doesn't ride the stream unifier:
-# RowShardedSpmv gives it its own dense-tile path (block rows shard
-# trivially; X replicated or all-gathered, one batched MXU matmul per
-# shard).  Column/ring partitions of BSR stay unsupported — the dense Y
-# psum would move R·nrows floats per step for a format whose point is
-# avoiding per-element traffic.
-_UNSUPPORTED = {"bsr"}
+__all__ = ["RowShardedSpmv", "ColShardedSpmv", "put_sharded"]
 
 
 def put_sharded(v, sharding):
@@ -75,118 +42,9 @@ def put_sharded(v, sharding):
     same code path serves single-process meshes and true multi-host runs
     brought up via ``mesh.init_distributed`` (every process holds the same
     deterministic host copy, so slicing by index is consistent)."""
-    v = jnp.asarray(v)
+    v = np.asarray(v)
     return jax.make_array_from_callback(v.shape, sharding,
                                         lambda idx: v[idx])
-
-
-def _pad_rows(arr: np.ndarray, target: int) -> np.ndarray:
-    if arr.shape[0] == target:
-        return arr
-    pad = [(0, target - arr.shape[0])] + [(0, 0)] * (arr.ndim - 1)
-    return np.pad(arr, pad)
-
-
-def _unify_plans(plans, plans_lo=None):
-    """Pad per-shard plan arrays to one shape, pick a common device-stream
-    geometry, split, and stack shard-major.  Pad rows are inert all-zero
-    rows (they accumulate 0 into their window base).  Seg plans must share
-    one pack P — the Spmv constructors choose it globally via
-    ``seg_pack_for`` and pass it to every shard build; the windowed
-    y-reduction height ``w_rows`` is likewise the max over shards so one
-    jitted kernel serves every device.
-
-    ``plans_lo`` (double-single mode): per-shard residual-value plans
-    sharing the hi plans' layout exactly (the packed placement depends
-    only on the sparsity pattern — ``spmv_tpu.x2``); their value planes
-    split with the same geometry into ``vlo{j}`` arrays."""
-    is_seg = hasattr(plans[0], "gidx")
-    # the two-bank layout's b2 plane has no unified/stacked path — a
-    # banked shard plan would silently gather from an incomplete lane
-    # map after stacking (callers pass bank=False to the shard builds)
-    assert not any(getattr(p, "b2", None) is not None for p in plans), \
-        "banked shard plan reached _unify_plans; build shards with bank=False"
-    packs = {p.pack for p in plans}
-    assert len(packs) == 1, f"shards disagree on pack: {packs}"
-    pack = plans[0].pack
-    names = ["vals", "lo", "hi"] + (["gidx"] if is_seg else [])
-    tm = max(p.vals.shape[0] for p in plans)
-    chunk, ns = pick_geometry(tm, pack, seg=is_seg,
-                              nrows=plans[0].nrows, ncols=plans[0].ncols,
-                              x2=plans_lo is not None)
-    tm_dev = round_up(max(tm, chunk * ns), chunk * ns)
-    from spmv_tpu.formats.base import SUBLANES, W_ALIGN
-
-    w_common = max(
-        round_up(max(window_span(p.row_block, tm_dev, chunk)
-                     for p in plans), W_ALIGN), SUBLANES)
-    stacked: dict[str, list] = {}
-    statics = {}
-    for i, p in enumerate(plans):
-        arrays = {n: _pad_rows(getattr(p, n), tm) for n in names}
-        arrays["row_block"] = p.row_block
-        arrays["sub_base"] = p.sub_base
-        split = split_packed_arrays(arrays, chunk, ns, pack, seg=is_seg,
-                                    nrows=p.nrows, w_rows=w_common)
-        statics["w_rows"] = split.pop("w_rows")
-        statics["out_rows"] = split.pop("out_rows")
-        if plans_lo is not None:
-            pl_ = plans_lo[i]
-            assert pl_.vals.shape == p.vals.shape, \
-                "x2 residual plan layout diverged from the hi plan"
-            split_lo = split_vals_planes(_pad_rows(pl_.vals, tm),
-                                         chunk, ns, pack)
-            for k, v in split_lo.items():
-                split[f"vlo{k[4:]}"] = v
-        for k, v in split.items():
-            stacked.setdefault(k, []).append(v)
-    return ({k: np.stack(v) for k, v in stacked.items()}, chunk, ns, is_seg,
-            pack, statics["w_rows"], statics["out_rows"])
-
-
-def _make_dev(arrays: dict, statics: "_ShardStatics"):
-    """Rebuild a Dev container from per-shard array slices (jit-traceable)."""
-    def tup(name, k):
-        return tuple(arrays[f"{name}{j}"] for j in range(k))
-
-    ns, pack = statics.ns, statics.pack
-    kva = seg_kva(pack, ns)
-    common = dict(vals=tup("vals", pack * kva), lo=tup("lo", pack),
-                  hi=arrays["hi"], meta=arrays["meta"],
-                  base_w=arrays["base_w"], sub_base=arrays["sub_base"],
-                  chunk=statics.chunk, ns=ns, pack=pack,
-                  w_rows=statics.w_rows, out_rows=statics.out_rows,
-                  nrows=((statics.rows_pad_per_shard
-                          or statics.rows_per_shard)
-                         if statics.is_row else statics.nrows),
-                  ncols=statics.ncols, nnz=0)
-    if "vlo0" in arrays:  # double-single residual value planes
-        common["vals_lo"] = tup("vlo", pack * kva)
-    if statics.is_seg:
-        return DevSeg(gidx=arrays["gidx"], **common)
-    return DevPanel(**common)
-
-
-@dataclass
-class _ShardStatics:
-    chunk: int
-    ns: int
-    is_seg: bool
-    is_row: bool
-    nrows: int
-    ncols: int
-    rows_per_shard: int
-    n_shards: int
-    pack: int = 1
-    w_rows: int = 8
-    out_rows: int = 8
-    x2: bool = False
-    # SELL row shards: plan rows per shard after σ-padding (0 = same as
-    # rows_per_shard).  The sorted y must keep ALL these blocks through
-    # the unpermute epilogue — truncating to rows_per_shard first reads
-    # clamped windows and corrupts every block ≥ rows_per_shard//128
-    # whenever σ ∤ rows_per_shard > 1024.
-    rows_pad_per_shard: int = 0
 
 
 def _x2_mode(dtype: str) -> bool:
@@ -195,954 +53,172 @@ def _x2_mode(dtype: str) -> bool:
     return dtype == "f32x2"
 
 
-_X2_SHARD_KWARGS = {"pack", "sigma", "chunk"}
+def shard_dev(format: str, x2: bool, nrows: int, ncols: int, rows, cols,
+              vals, **fmt_kwargs):
+    """One shard's device container (fp64 planes when ``x2``)."""
+    if x2:
+        from spmv_tpu.x2 import x2_build
+
+        return x2_build(format, nrows, ncols, rows, cols, vals)
+    from spmv_tpu.api import FORMATS
+
+    return FORMATS[format].from_coo(nrows, ncols, rows, cols, vals,
+                                    **fmt_kwargs).dev
 
 
-def _x2_shard_plans(format: str, nrows_pad: int, ncols: int, rows, cols,
-                    v64: np.ndarray, *, pack: int, sigma: int | None = None,
-                    chunk: int | None = None):
-    """One shard's (plan_hi, plan_lo, whi, idx, y_rows) in double-single
-    mode — the per-shard analog of ``x2.X2Matrix.from_coo`` (the residual
-    plan shares the hi plan's layout because packing depends only on the
-    sparsity pattern)."""
-    from spmv_tpu.formats.base import build_panel_plan, build_seg_plan
-
-    ck = {} if chunk is None else {"chunk": chunk}
-    vh = v64.astype(np.float32)
-    vl = (v64 - vh.astype(np.float64)).astype(np.float32)
-    if format in ("csr", "coo", "cmrs"):
-        p = build_seg_plan(rows, cols, vh, nrows_pad, ncols, pack=pack, **ck)
-        p_lo = build_seg_plan(rows, cols, vl, nrows_pad, ncols,
-                              pack=p.pack, **ck)
-        return p, p_lo, None, None, nrows_pad
-    y_rows = nrows_pad
-    whi = idx = None
-    if format in ("sell", "sell_c_sigma"):
-        from spmv_tpu.formats.sell import DEFAULT_SIGMA, sigma_sort_tables
-
-        rows, _sorted, _perm, whi, idx, y_rows = sigma_sort_tables(
-            rows, cols, nrows_pad, ncols,
-            min(sigma or DEFAULT_SIGMA, nrows_pad))
-    p = build_panel_plan(rows, cols, vh, y_rows, ncols, pack=pack, **ck)
-    p_lo = build_panel_plan(rows, cols, vl, y_rows, ncols, pack=p.pack, **ck)
-    return p, p_lo, whi, idx, y_rows
+def local(devs):
+    """Inside ``shard_map``: drop the (size-1) device axis of every leaf."""
+    return jax.tree.map(lambda a: a[0], devs)
 
 
-def _ds_add(h1, l1, h2, l2):
-    """Double-single (h1,l1) + (h2,l2): Knuth TwoSum on the heads, errors
-    folded into the tail, then a renormalizing quick-two-sum.  Runs in
-    XLA outside the kernels (cross-shard combines keep double-single
-    accuracy); XLA preserves f32 add/sub ordering, so the error terms
-    survive compilation."""
-    s = h1 + h2
-    v = s - h1
-    e = (h1 - (s - v)) + (h2 - v)
-    t = e + l1 + l2
-    h = s + t
-    return h, t - (h - s)
+class _Sharded:
+    """Shared matvec / matmat plumbing: ``self._fn(x, arrays)`` is the
+    jitted sharded product; ``_x_in`` lays x out for it."""
+
+    x2 = False
+
+    def _product(self, x, ndim: int):
+        dt = np.float64 if self.x2 else np.float32
+        x = np.asarray(x, dt)
+        if x.ndim != ndim or x.shape[0] != self.ncols:
+            want = f"({self.ncols},)" if ndim == 1 else f"({self.ncols}, R)"
+            raise ValueError(f"x must be {want}, got {x.shape}")
+        if not self.x2:
+            return self._fn(self._x_in(x), self.arrays)
+        from spmv_tpu.x2 import x2_apply
+
+        return x2_apply(lambda xx: self._fn(self._x_in(xx), self.arrays),
+                        x)
+
+    def matvec(self, x):
+        return self._product(x, 1)
+
+    def matmat(self, X):
+        return self._product(X, 2)
+
+    spmm = matmat
+    __matmul__ = matvec
 
 
-class RowShardedSpmv:
-    """y = A·x with A row-partitioned over ``mesh``'s single axis.
-
-    SELL-C-σ shards sort and unpermute their row slabs locally (the σ-sort
-    never crosses a slab boundary because σ ≤ 1024 ≤ the slab size)."""
+class RowShardedSpmv(_Sharded):
+    """y = A·x with A row-partitioned over ``mesh``'s single axis."""
 
     def __init__(self, format: str, nrows: int, ncols: int, rows, cols, vals,
                  mesh: Mesh, *, gather_x: bool = True, dtype: str = "f32",
                  **fmt_kwargs):
-        from spmv_tpu.api import FORMATS
-
         format = format.lower()
         self.x2 = _x2_mode(dtype)
-        self._bsr = format == "bsr"
-        if self._bsr:
-            if self.x2:
-                raise NotImplementedError("f32x2 BSR is not supported")
-            self._init_bsr(nrows, ncols, rows, cols, vals, mesh,
-                           gather_x=gather_x, **fmt_kwargs)
-            return
-        if self.x2 and format == "hyb":
-            raise NotImplementedError(
-                "sharded f32x2 covers the five reference formats "
-                "(csr/coo/cmrs/ell/sell); single-chip f32x2 HYB is "
-                "X2Matrix.from_coo('hyb', ...)")
-        if self.x2 and not set(fmt_kwargs) <= _X2_SHARD_KWARGS:
-            raise ValueError(
-                f"f32x2 sharding honors {sorted(_X2_SHARD_KWARGS)}; got "
-                f"{sorted(set(fmt_kwargs) - _X2_SHARD_KWARGS)}")
-        cls = FORMATS[format]
-        self.is_sell = format in ("sell", "sell_c_sigma")
-        self.is_hyb = format == "hyb"
-        self.format = format
-        self.mesh = mesh
-        self.axis = mesh.axis_names[0]
-        D = mesh.shape[self.axis]
-        rows = np.asarray(rows, dtype=np.int64)
-        cols = np.asarray(cols)
-        vals = np.asarray(vals, dtype=np.float64 if self.x2 else None)
-
-        # Every shard must build with the same packed-engine P — choose it
-        # once from the full matrix's segment/width histograms.
-        # shard plans unify into one stacked stream layout; the two-bank
-        # layout (formats.bank) has no unified path — force it off so a
-        # scattered shard cannot price a b2 plane the stacker would drop
-        if format in ("csr", "coo", "cmrs", "hyb"):
-            fmt_kwargs = dict(fmt_kwargs, bank=False)
-        if format in ("csr", "coo", "cmrs") and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=seg_pack_for(rows, cols, nrows, ncols))
-        elif format in _PANEL_FORMATS and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=panel_pack_for(rows, cols, nrows, ncols))
-        elif format == "hyb":
-            fmt_kwargs = dict(fmt_kwargs)
-            fmt_kwargs.setdefault("pack", seg_pack_for(rows, cols, nrows, ncols))
-            fmt_kwargs.setdefault("panel_pack",
-                                  panel_pack_for(rows, cols, nrows, ncols))
-
-        if format in _PANEL_FORMATS:
-            # shards build pure panels: one engine pass per collective (the
-            # priced panel/spill split stays a single-chip lowering)
-            fmt_kwargs = dict(fmt_kwargs, split=False)
-        rps = round_up(max(cdiv(nrows, D), LANES), LANES)
-        rps_pad = rps  # SELL σ-pads each shard's plan rows below
-        if self.x2:
-            pairs = []
-            whis, idxs = [], []
-            for d in range(D):
-                lo, hi = d * rps, (d + 1) * rps
-                sel = (rows >= lo) & (rows < hi)
-                p, p_lo, whi, idx, y_rows = _x2_shard_plans(
-                    format, rps, ncols, rows[sel] - lo, cols[sel], vals[sel],
-                    **{k: fmt_kwargs.get(k) for k in _X2_SHARD_KWARGS})
-                pairs.append((p, p_lo))
-                rps_pad = y_rows  # same for every shard (f(rps, σ))
-                if whi is not None:
-                    whis.append(whi)
-                    idxs.append(idx)
-            (arrays, chunk, ns, self.is_seg, pack, w_rows,
-             out_rows) = _unify_plans([p for p, _ in pairs],
-                                      [pl_ for _, pl_ in pairs])
-            shards = None
-        else:
-            shards = []
-            for d in range(D):
-                lo, hi = d * rps, (d + 1) * rps
-                sel = (rows >= lo) & (rows < hi)
-                shards.append(
-                    cls.from_coo(rps, ncols, rows[sel] - lo, cols[sel],
-                                 vals[sel], **fmt_kwargs)
-                )
-            (arrays, chunk, ns, self.is_seg, pack, w_rows,
-             out_rows) = _unify_plans([s.plan for s in shards])
-            if self.is_sell:
-                rps_pad = shards[0].plan.nrows
-        self.st_spill = None
-        if self.is_hyb:
-            # HYB is a two-part plan: the panel part unified above, the
-            # segmented spill part unified separately (its own geometry).
-            from spmv_tpu.formats.base import _empty_seg
-
-            spill = [s.spill_plan if s.spill_plan is not None
-                     else _empty_seg(rps, ncols, chunk, fmt_kwargs["pack"])
-                     for s in shards]
-            (sp_arrays, sp_chunk, sp_ns, _, sp_pack, sp_w,
-             sp_out) = _unify_plans(spill)
-            arrays.update({f"sp_{k}": v for k, v in sp_arrays.items()})
-            self.st_spill = _ShardStatics(
-                chunk=sp_chunk, ns=sp_ns, is_seg=True, is_row=True,
-                nrows=nrows, ncols=ncols, rows_per_shard=rps, n_shards=D,
-                pack=sp_pack, w_rows=sp_w, out_rows=sp_out,
-            )
-        if self.is_sell:
-            # per-shard epilogue metadata: every shard has the same row
-            # count, so the shapes already agree (identity tables when a
-            # shard's adaptive σ kept natural order).
-            if self.x2:
-                arrays["perm_whi"] = np.stack(whis)
-                arrays["perm_idx"] = np.stack(idxs)
-            else:
-                arrays["perm_whi"] = np.stack(
-                    [np.asarray(s._perm_whi) for s in shards])
-                arrays["perm_idx"] = np.stack(
-                    [np.asarray(s._perm_idx) for s in shards])
-        self.st = _ShardStatics(
-            chunk=chunk, ns=ns, is_seg=self.is_seg, is_row=True,
-            nrows=nrows, ncols=ncols, rows_per_shard=rps, n_shards=D,
-            pack=pack, w_rows=w_rows, out_rows=out_rows, x2=self.x2,
-            rows_pad_per_shard=rps_pad,
-        )
+        if self.x2 and format == "bsr":
+            raise NotImplementedError("f32x2 BSR is not supported")
+        self.format, self.mesh = format, mesh
+        self.axis = axis = mesh.axis_names[0]
+        self.nrows, self.ncols = nrows, ncols
         self.gather_x = gather_x
-        sharded = NamedSharding(mesh, P(self.axis))
-        self.arrays = {
-            k: put_sharded(v, sharded) for k, v in arrays.items()
-        }
-        # x table rows, padded so the shard axis divides evenly when sharded.
-        self.S = x_table_rows(ncols)
-        if gather_x:
-            self.S = round_up(self.S, D)
-        self._fn = self._build()
-
-    def _build(self):
-        st, axis, mesh = self.st, self.axis, self.mesh
-        st_spill = self.st_spill
-        gather_x = self.gather_x
-        is_sell = self.is_sell
-        names = list(self.arrays)
-        nb = st.rows_per_shard // LANES
-        # SELL: σ-padded sorted blocks per shard — the epilogue must see
-        # ALL of them (its whi windows span [0, nb_pad)); slice to the
-        # shard's nb real blocks only after the unpermute.
-        nb_pad = (st.rows_pad_per_shard or st.rows_per_shard) // LANES
-
-        if st.x2:
-            from spmv_tpu.kernels.engines_x2 import (panel_spmv_x2,
-                                                     segmented_spmv_x2)
-
-            def shard_fn_x2(xh_local, xl_local, *plan):
-                a = dict(zip(names, (p[0] for p in plan)))
-                if gather_x:
-                    xh = jax.lax.all_gather(xh_local, axis, axis=0,
-                                            tiled=True)
-                    xl = jax.lax.all_gather(xl_local, axis, axis=0,
-                                            tiled=True)
-                else:
-                    xh, xl = xh_local, xl_local
-                x2d = jnp.concatenate([xh, xl], axis=0)
-                dev = _make_dev(a, st)
-                fn = segmented_spmv_x2 if st.is_seg else panel_spmv_x2
-                yh, yl = fn(dev, x2d)
-                if is_sell:
-                    def ep(y):
-                        y2 = y[:nb_pad]
-                        if nb_pad < 8:
-                            y2 = jnp.pad(y2, ((0, 8 - nb_pad), (0, 0)))
-                        return inverse_permute_blocks(
-                            a["perm_whi"], a["perm_idx"],
-                            y2)[:, : nb * LANES]
-
-                    yh, yl = ep(yh), ep(yl)
-                else:
-                    yh, yl = yh[:nb], yl[:nb]
-                return yh, yl
-
-            xspec = P(axis, None) if gather_x else P()
-            return jax.jit(shard_map(
-                shard_fn_x2, mesh=mesh,
-                in_specs=(xspec, xspec) + (P(axis),) * len(names),
-                out_specs=(P(axis, None), P(axis, None)),
-                check_vma=False,
-            ))
-
-        def shard_fn(x_local, *plan):
-            a = dict(zip(names, (p[0] for p in plan)))
-            if gather_x:
-                x2d = jax.lax.all_gather(x_local, axis, axis=0, tiled=True)
-            else:
-                x2d = x_local
-            dev = _make_dev(a, st)
-            if st.is_seg:
-                # slice to the shard's true blocks: out_rows ≥ nb and the
-                # shards concatenate along rows in the global y
-                return segmented_spmv(dev, x2d)[:nb]
-            y = panel_spmv(dev, x2d)
-            if st_spill is not None:  # HYB: add the segmented spill partial
-                sp = {k[3:]: v for k, v in a.items() if k.startswith("sp_")}
-                ys = segmented_spmv(_make_dev(sp, st_spill), x2d)
-                n = max(y.shape[0], ys.shape[0])
-                if y.shape[0] < n:
-                    y = jnp.pad(y, ((0, n - y.shape[0]), (0, 0)))
-                if ys.shape[0] < n:
-                    ys = jnp.pad(ys, ((0, n - ys.shape[0]), (0, 0)))
-                y = y + ys
-            if is_sell:
-                y2 = y[:nb_pad]
-                if nb_pad < 8:  # epilogue windows always slice 8 table rows
-                    y2 = jnp.pad(y2, ((0, 8 - nb_pad), (0, 0)))
-                y = inverse_permute_blocks(a["perm_whi"], a["perm_idx"],
-                                           y2)[:, : nb * LANES]
-            else:
-                y = y[:nb]
-            return y
-
-        xspec = P(axis, None) if gather_x else P()
-        fn = shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(xspec,) + (P(axis),) * len(names),
-            out_specs=P(axis, None),
-            check_vma=False,  # pallas_call out_shape carries no vma info
-        )
-        return jax.jit(fn)
-
-    def _init_bsr(self, nrows, ncols, rows, cols, vals, mesh, *,
-                  gather_x: bool = True, **fmt_kwargs):
-        """Row-sharded BSR SpMM: block rows shard trivially — each device
-        owns its row slab's dense 128×128 tiles (padded to a common tile
-        count with inert all-zero tiles, which segment-sum harmlessly
-        into block 0); Y = A @ X is one batched MXU matmul + block-row
-        segment-sum per shard, with X replicated (``gather_x=False``) or
-        row-sharded and all-gathered over ICI.  This scales the R ≳ 32
-        regime where BSR owns the multi-RHS path (DESIGN.md) over the
-        mesh — round-3 verdict item 8."""
-        from spmv_tpu.formats.bsr import BSRMatrix
-
-        self.format = "bsr"
-        self.is_sell = self.is_hyb = False
-        self.is_seg = False
-        self.mesh = mesh
-        self.axis = mesh.axis_names[0]
-        D = mesh.shape[self.axis]
+        D = mesh.shape[axis]
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
-        rps = round_up(max(cdiv(nrows, D), LANES), LANES)
-        shards = []
+        self.rps = rps = cdiv(max(nrows, 1), D)
+        devs = []
         for d in range(D):
-            lo, hi = d * rps, (d + 1) * rps
-            sel = (rows >= lo) & (rows < hi)
-            shards.append(BSRMatrix.from_coo(
-                rps, ncols, rows[sel] - lo, cols[sel], vals[sel],
-                **fmt_kwargs))
-        self._bsr_precision = shards[0].precision
-        T = max(int(s.tiles.shape[0]) for s in shards)
-        tiles = np.zeros((D, T, LANES, LANES), np.float32)
-        tblk = np.zeros((D, T), np.int32)
-        tstp = np.zeros((D, T), np.int32)
-        for d, s in enumerate(shards):
-            t = int(s.tiles.shape[0])
-            tiles[d, :t] = np.asarray(s.tiles)
-            tblk[d, :t] = np.asarray(s.tile_blk)
-            tstp[d, :t] = np.asarray(s.tile_stp)
-        self.fill = float(D * T * LANES * LANES / max(rows.size, 1))
-        self.st = _ShardStatics(
-            chunk=0, ns=0, is_seg=False, is_row=True, nrows=nrows,
-            ncols=ncols, rows_per_shard=rps, n_shards=D)
-        self.st_spill = None
-        self.gather_x = gather_x
-        # X rows padded so the shard axis divides evenly when sharded
-        self._cpad = round_up(max(ncols, LANES), D * LANES)
-        sharded = NamedSharding(mesh, P(self.axis))
-        self.arrays = {"tiles": put_sharded(tiles, sharded),
-                       "tile_blk": put_sharded(tblk, sharded),
-                       "tile_stp": put_sharded(tstp, sharded)}
-        self._bsr_fns: dict = {}
-
-    def _build_bsr(self, R: int):
-        from spmv_tpu.formats.bsr import _bsr_matmat
-
-        st, axis, mesh = self.st, self.axis, self.mesh
-        gather_x = self.gather_x
-        rps = st.rows_per_shard
-        ns2 = self._cpad // LANES
-        precision = self._bsr_precision
-
-        def shard_fn(X_local, tiles, tblk, tstp):
-            X = (jax.lax.all_gather(X_local, axis, axis=0, tiled=True)
-                 if gather_x else X_local)
-            return _bsr_matmat(tiles[0], tblk[0], tstp[0], X,
-                               nb=rps // LANES, ns=ns2, nrows=rps,
-                               precision=precision)
-
-        xspec = P(axis, None) if gather_x else P()
-        return jax.jit(shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(xspec, P(self.axis), P(self.axis), P(self.axis)),
-            out_specs=P(axis, None),
-            check_vma=False,
-        ))
-
-    def _bsr_spmm(self, X):
-        Xa = np.asarray(X, np.float32)
-        if Xa.ndim != 2 or Xa.shape[0] != self.st.ncols:
-            raise ValueError(f"X must be ({self.st.ncols}, R), got "
-                             f"{Xa.shape}")
-        R = Xa.shape[1]
-        fn = self._bsr_fns.get(R)
-        if fn is None:
-            fn = self._bsr_fns[R] = self._build_bsr(R)
-        Xp = np.zeros((self._cpad, R), np.float32)
-        Xp[: Xa.shape[0]] = Xa
-        xs = jnp.asarray(Xp)
-        if self.gather_x:
-            xs = put_sharded(xs, NamedSharding(self.mesh, P(self.axis,
-                                                            None)))
-        Y = fn(xs, *self.arrays.values())  # (D·rps, R), rows sharded
-        return Y[: self.st.nrows]
-
-    def _matvec_traced(self, v, arrays):
-        """Traceable matvec for composing into larger jitted programs
-        (``spmv_tpu.solve``): the sharded plan arrays arrive as jit
-        ARGUMENTS (a closure would embed them as compile-payload
-        constants, DESIGN.md fact 6); x is resharded via a sharding
-        constraint and the whole caller — e.g. a Krylov loop — compiles
-        as ONE SPMD program over the mesh."""
-        if self.x2 or self._bsr:
-            raise NotImplementedError(
-                "traced composition covers the f32 plan-based shardings")
-        xf = jnp.asarray(v, jnp.float32).reshape(-1)
-        xf = jnp.pad(xf, (0, self.S * LANES - xf.shape[0]))
-        x2d = xf.reshape(self.S, LANES)
-        if self.gather_x:
-            x2d = jax.lax.with_sharding_constraint(
-                x2d, NamedSharding(self.mesh, P(self.axis, None)))
-        y = self._fn(x2d, *arrays)
-        return y.reshape(-1)[: self.st.nrows]
-
-    def matvec(self, x):
-        if self.x2:
-            return self._matvec_x2(x)
-        if self._bsr:
-            return self._bsr_spmm(
-                np.asarray(x, np.float32).reshape(-1, 1))[:, 0]
-        xf = jnp.asarray(x, jnp.float32).reshape(-1)
-        if xf.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"x has {xf.shape[0]} entries, matrix has {self.st.ncols} columns")
-        xf = jnp.pad(xf, (0, self.S * LANES - xf.shape[0]))
-        x2d = xf.reshape(self.S, LANES)
-        if self.gather_x:
-            x2d = put_sharded(
-                x2d, NamedSharding(self.mesh, P(self.axis, None)))
-        y = self._fn(x2d, *self.arrays.values())
-        return y.reshape(-1)[: self.st.nrows]
-
-    def _matvec_x2(self, x):
-        """Double-single matvec: hi/lo x tables sharded separately, the
-        per-shard (y_hi, y_lo) halves combined exactly in fp64 on host
-        (row partition: no cross-shard reduction, so accuracy matches the
-        single-chip ``x2.X2Matrix``)."""
-        x64 = np.asarray(x, dtype=np.float64).reshape(-1)
-        if x64.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"x has {x64.shape[0]} entries, matrix has "
-                f"{self.st.ncols} columns")
-        xh = x64.astype(np.float32)
-        xl = (x64 - xh.astype(np.float64)).astype(np.float32)
-
-        def table(v):
-            out = np.zeros(self.S * LANES, np.float32)
-            out[: v.size] = v
-            return jnp.asarray(out.reshape(self.S, LANES))
-
-        xh2d, xl2d = table(xh), table(xl)
-        if self.gather_x:
-            sh = NamedSharding(self.mesh, P(self.axis, None))
-            xh2d, xl2d = put_sharded(xh2d, sh), put_sharded(xl2d, sh)
-        yh, yl = self._fn(xh2d, xl2d, *self.arrays.values())
-        y = np.asarray(yh, np.float64) + np.asarray(yl, np.float64)
-        return y.reshape(-1)[: self.st.nrows]
-
-    __matmul__ = matvec
-
-    @property
-    def nrows(self) -> int:
-        return self.st.nrows
-
-    @property
-    def ncols(self) -> int:
-        return self.st.ncols
-
-    def _multi_fits(self, rhs: int) -> bool:
-        """Per-shard VMEM envelope of the fused multi-RHS kernels — the
-        joint per-kernel budget of ``device.multi_rhs_fits``, covering
-        both parts of a split plan."""
-        from spmv_tpu.device import multi_rhs_fits
-
-        parts = [(st.chunk, st.ns, st.pack, st.is_seg, st.w_rows,
-                  st.out_rows)
-                 for st in filter(None, (self.st, self.st_spill))]
-        return multi_rhs_fits(rhs, self.S, parts)
-
-    def _build_multi(self, rhs: int):
-        """shard_map'd fused multi-RHS pass: ONE plan stream + ONE x
-        all-gather serve all R columns (vs R gathers in the column
-        loop) — the distributed analog of DESIGN.md fact 12."""
-        from spmv_tpu.kernels.engines import (panel_spmv_multi,
-                                              segmented_spmv_multi)
-
-        st, axis, mesh = self.st, self.axis, self.mesh
-        st_spill = self.st_spill
-        gather_x = self.gather_x
-        is_sell = self.is_sell
-        names = list(self.arrays)
-        nb = st.rows_per_shard // LANES
-        nb_pad = (st.rows_pad_per_shard or st.rows_per_shard) // LANES
-
-        def shard_fn(x_local, *plan):
-            a = dict(zip(names, (p[0] for p in plan)))
-            if gather_x:
-                x2d = jax.lax.all_gather(x_local, axis, axis=0, tiled=True)
-            else:
-                x2d = x_local
-            dev = _make_dev(a, st)
-            if st.is_seg:
-                y = segmented_spmv_multi(dev, x2d, rhs)
-                return y.reshape(rhs, st.out_rows, LANES)[:, :nb]
-            y = panel_spmv_multi(dev, x2d, rhs).reshape(
-                rhs, st.out_rows, LANES)
-            if st_spill is not None:  # HYB: add the segmented spill part
-                sp = {k[3:]: v for k, v in a.items() if k.startswith("sp_")}
-                ys = segmented_spmv_multi(
-                    _make_dev(sp, st_spill), x2d, rhs).reshape(
-                        rhs, st_spill.out_rows, LANES)
-                n = max(y.shape[1], ys.shape[1])
-                if y.shape[1] < n:
-                    y = jnp.pad(y, ((0, 0), (0, n - y.shape[1]), (0, 0)))
-                if ys.shape[1] < n:
-                    ys = jnp.pad(ys, ((0, 0), (0, n - ys.shape[1]), (0, 0)))
-                y = y + ys
-            if is_sell:
-                cols = []
-                for r in range(rhs):
-                    y2 = y[r, :nb_pad]
-                    if nb_pad < 8:  # epilogue windows slice 8 table rows
-                        y2 = jnp.pad(y2, ((0, 8 - nb_pad), (0, 0)))
-                    cols.append(inverse_permute_blocks(
-                        a["perm_whi"], a["perm_idx"], y2)[:, : nb * LANES])
-                return jnp.stack(cols).reshape(rhs, nb, LANES)
-            return y[:, :nb]
-
-        xspec = P(axis, None) if gather_x else P()
-        return jax.jit(shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(xspec,) + (P(axis),) * len(names),
-            out_specs=P(None, axis, None),
-            check_vma=False,
-        ))
-
-    def spmm(self, X):
-        """Row-sharded SpMM: Y = A @ X for X (ncols, R).
-
-        For 2 ≤ R ≤ ``engines.MULTI_RHS_MAX`` (f32, within the per-shard
-        VMEM envelope) the shards run the fused multi-RHS engine pass —
-        one plan-stream pass and ONE x all-gather for all R columns
-        (DESIGN.md fact 12).  Otherwise one sharded matvec per column."""
-        from spmv_tpu.api import spmm as _spmm
-        from spmv_tpu.kernels.engines import MULTI_RHS_MAX
-
-        if self._bsr:
-            return self._bsr_spmm(X)
-        Xa = np.asarray(X)
-        R = Xa.shape[1] if Xa.ndim == 2 else 0
-        if (self.x2 or R < 2 or R > MULTI_RHS_MAX
-                or not self._multi_fits(R)):
-            return _spmm(self, X)
-        if Xa.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"X must be ({self.st.ncols}, R), got {Xa.shape}")
-        if not hasattr(self, "_multi_fns"):
-            self._multi_fns = {}
-        fn = self._multi_fns.get(R)
-        if fn is None:
-            fn = self._multi_fns[R] = self._build_multi(R)
-        tabs = np.zeros((R * self.S, LANES), np.float32)
-        for r in range(R):
-            col = np.zeros(self.S * LANES, np.float32)
-            col[: self.st.ncols] = np.asarray(Xa[:, r], np.float32)
-            tabs[r * self.S:(r + 1) * self.S] = col.reshape(self.S, LANES)
-        x2d = jnp.asarray(tabs)
-        if self.gather_x:
-            x2d = put_sharded(
-                x2d, NamedSharding(self.mesh, P(self.axis, None)))
-        Y3 = fn(x2d, *self.arrays.values())  # (R, NB_total, 128)
-        return jnp.asarray(Y3).reshape(R, -1)[:, : self.st.nrows].T
-
-
-class ColShardedSpmv:
-    """y = A·x with A column-partitioned (x sharded, partial-y psum).
-
-    SELL-C-σ needs ONE row permutation shared by every column shard (each
-    shard sorting its own slab would psum incompatibly-permuted partials),
-    so the σ-sort runs globally here (``sigma_sort_tables``), the shards
-    build panel plans over the pre-permuted rows, and the unpermute
-    epilogue runs once on the psum'd full y.  HYB shards as a two-part
-    plan like ``RowShardedSpmv``."""
-
-    def __init__(self, format: str, nrows: int, ncols: int, rows, cols, vals,
-                 mesh: Mesh, *, dtype: str = "f32", **fmt_kwargs):
-        from spmv_tpu.api import FORMATS
-
-        format = format.lower()
-        self.x2 = _x2_mode(dtype)
-        if format in _UNSUPPORTED:
-            raise NotImplementedError(
-                "column-sharded BSR not supported (a dense-Y psum per "
-                "step defeats the block-dense format); use RowShardedSpmv"
-                "('bsr', ...) or shard csr/coo/cmrs/ell/sell/hyb")
-        if self.x2 and format == "hyb":
-            raise NotImplementedError(
-                "sharded f32x2 covers the five reference formats "
-                "(csr/coo/cmrs/ell/sell); single-chip f32x2 HYB is "
-                "X2Matrix.from_coo('hyb', ...)")
-        if self.x2 and not set(fmt_kwargs) <= _X2_SHARD_KWARGS:
-            raise ValueError(
-                f"f32x2 sharding honors {sorted(_X2_SHARD_KWARGS)}; got "
-                f"{sorted(set(fmt_kwargs) - _X2_SHARD_KWARGS)}")
-        self.is_sell = format in ("sell", "sell_c_sigma")
-        self.is_hyb = format == "hyb"
-        cls = FORMATS[format]
-        self.format = format
-        self.mesh = mesh
-        self.axis = mesh.axis_names[0]
-        D = mesh.shape[self.axis]
-        rows = np.asarray(rows, dtype=np.int64)
-        cols = np.asarray(cols, dtype=np.int64)
-        vals = np.asarray(vals, dtype=np.float64 if self.x2 else None)
-
-        # shard plans unify into one stacked stream layout; the two-bank
-        # layout (formats.bank) has no unified path — force it off so a
-        # scattered shard cannot price a b2 plane the stacker would drop
-        if format in ("csr", "coo", "cmrs", "hyb"):
-            fmt_kwargs = dict(fmt_kwargs, bank=False)
-        if format in ("csr", "coo", "cmrs") and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=seg_pack_for(rows, cols, nrows, ncols))
-        elif format in _PANEL_FORMATS and "pack" not in fmt_kwargs:
-            fmt_kwargs = dict(fmt_kwargs,
-                              pack=panel_pack_for(rows, cols, nrows, ncols))
-        elif format == "hyb":
-            fmt_kwargs = dict(fmt_kwargs)
-            fmt_kwargs.setdefault("pack",
-                                  seg_pack_for(rows, cols, nrows, ncols))
-            fmt_kwargs.setdefault("panel_pack",
-                                  panel_pack_for(rows, cols, nrows, ncols))
-
-        self._perm_whi = self._perm_idx = None
-        self._x2_perm = None
-        y_rows = nrows
-        if self.is_sell:
-            from spmv_tpu.formats.sell import DEFAULT_SIGMA, sigma_sort_tables
-
-            sigma = fmt_kwargs.pop("sigma", None) or DEFAULT_SIGMA
-            rows, sorted_, perm, whi, idx, y_rows = sigma_sort_tables(
-                rows, cols, nrows, ncols, sigma)
-            if sorted_:
-                self._perm_whi = jnp.asarray(whi)
-                self._perm_idx = jnp.asarray(idx)
-            if self.x2:
-                # host-side fp64 epilogue: perm maps sorted pos -> orig row
-                self._x2_perm = perm
-            cls = FORMATS["ell"]  # shards: plain panels over sorted rows
-            fmt_kwargs.pop("pack", None)
-            fmt_kwargs["pack"] = panel_pack_for(rows, cols, y_rows, ncols)
-        if self.is_sell or format in _PANEL_FORMATS:
-            # column shards build pure panels (one engine pass per psum)
-            fmt_kwargs = dict(fmt_kwargs, split=False)
-        cps = round_up(max(cdiv(ncols, D), LANES), LANES)
-        if self.x2:
-            fmt = "ell" if self.is_sell else format  # sort already applied
-            pairs = []
-            for d in range(D):
-                lo, hi = d * cps, (d + 1) * cps
-                sel = (cols >= lo) & (cols < hi)
-                p, p_lo, _whi, _idx, _yr = _x2_shard_plans(
-                    fmt, y_rows, cps, rows[sel], cols[sel] - lo, vals[sel],
-                    pack=fmt_kwargs.get("pack"),
-                    chunk=fmt_kwargs.get("chunk"))
-                pairs.append((p, p_lo))
-            (arrays, chunk, ns, self.is_seg, pack, w_rows,
-             out_rows) = _unify_plans([p for p, _ in pairs],
-                                      [pl_ for _, pl_ in pairs])
-        else:
-            shards = []
-            for d in range(D):
-                lo, hi = d * cps, (d + 1) * cps
-                sel = (cols >= lo) & (cols < hi)
-                shards.append(
-                    cls.from_coo(y_rows, cps, rows[sel], cols[sel] - lo,
-                                 vals[sel], **fmt_kwargs)
-                )
-            (arrays, chunk, ns, self.is_seg, pack, w_rows,
-             out_rows) = _unify_plans([s.plan for s in shards])
-        self.st_spill = None
-        if self.is_hyb:
-            from spmv_tpu.formats.base import _empty_seg
-
-            spill = [s.spill_plan if s.spill_plan is not None
-                     else _empty_seg(nrows, cps, chunk, fmt_kwargs["pack"])
-                     for s in shards]
-            (sp_arrays, sp_chunk, sp_ns, _, sp_pack, sp_w,
-             sp_out) = _unify_plans(spill)
-            arrays.update({f"sp_{k}": v for k, v in sp_arrays.items()})
-            self.st_spill = _ShardStatics(
-                chunk=sp_chunk, ns=sp_ns, is_seg=True, is_row=False,
-                nrows=nrows, ncols=ncols, rows_per_shard=cps, n_shards=D,
-                pack=sp_pack, w_rows=sp_w, out_rows=sp_out,
-            )
-        self.st = _ShardStatics(
-            chunk=chunk, ns=ns, is_seg=self.is_seg, is_row=False,
-            nrows=y_rows, ncols=ncols, rows_per_shard=cps, n_shards=D,
-            pack=pack, w_rows=w_rows, out_rows=out_rows, x2=self.x2,
-        )
-        self.true_nrows = nrows
-        sharded = NamedSharding(mesh, P(self.axis))
-        self.arrays = {
-            k: put_sharded(v, sharded) for k, v in arrays.items()
-        }
-        self.S_local = x_table_rows(cps)
-        self.cps = cps
+            sel = (rows >= d * rps) & (rows < (d + 1) * rps)
+            devs.append(shard_dev(format, self.x2, rps, ncols,
+                                  rows[sel] - d * rps, cols[sel], vals[sel],
+                                  **fmt_kwargs))
+        spec = NamedSharding(mesh, P(axis))
+        self.arrays = jax.tree.map(lambda a: put_sharded(a, spec),
+                                   stack(devs))
+        # x rows padded so the shard axis divides them evenly
+        self.x_rows = cdiv(max(ncols, 1), D) * D
         self._fn = self._build()
 
     def _build(self):
-        st, axis, mesh = self.st, self.axis, self.mesh
-        st_spill = self.st_spill
-        S_local = self.S_local
-        names = list(self.arrays)
-        nb = cdiv(st.nrows, LANES)
+        axis, ncols, nrows = self.axis, self.ncols, self.nrows
+        gather_x = self.gather_x
 
-        if st.x2:
-            from spmv_tpu.kernels.engines_x2 import (panel_spmv_x2,
-                                                     segmented_spmv_x2)
-            D = st.n_shards
+        def shard_fn(x, devs):
+            if gather_x:
+                x = jax.lax.all_gather(x, axis, axis=0, tiled=True)
+            return local(devs)(x[:ncols])
 
-            def shard_fn_x2(xh_local, xl_local, *plan):
-                a = dict(zip(names, (p[0] for p in plan)))
+        fn = shard_map(shard_fn, mesh=self.mesh,
+                       in_specs=(P(axis) if gather_x else P(), P(axis)),
+                       out_specs=P(axis))
+        return jax.jit(lambda x, devs: fn(x, devs)[:nrows])
 
-                def table(xf):
-                    xf = jnp.pad(xf[0], (0, S_local * LANES - xf.shape[1]))
-                    return xf.reshape(S_local, LANES)
-
-                x2d = jnp.concatenate([table(xh_local), table(xl_local)],
-                                      axis=0)
-                dev = _make_dev(a, st)
-                fn = segmented_spmv_x2 if st.is_seg else panel_spmv_x2
-                yh, yl = fn(dev, x2d)
-                yh, yl = yh[:nb], yl[:nb]
-                # Cross-shard partial-y reduction in double-single: psum
-                # would collapse each half to plain f32 sums, losing the
-                # compensated bits, so gather every shard's pair and fold
-                # with TwoSum (D is static; the unrolled chain stays exact
-                # because XLA preserves f32 add/sub ordering).
-                yhs = jax.lax.all_gather(yh, axis)
-                yls = jax.lax.all_gather(yl, axis)
-                h, l = yhs[0], yls[0]
-                for d in range(1, D):
-                    h, l = _ds_add(h, l, yhs[d], yls[d])
-                return h, l
-
-            return jax.jit(shard_map(
-                shard_fn_x2, mesh=mesh,
-                in_specs=(P(axis, None), P(axis, None))
-                + (P(axis),) * len(names),
-                out_specs=(P(), P()),
-                check_vma=False,
-            ))
-
-        def shard_fn(x_local, *plan):
-            a = dict(zip(names, (p[0] for p in plan)))
-            xf = x_local[0]  # (cps,)
-            xf = jnp.pad(xf, (0, S_local * LANES - xf.shape[0]))
-            x2d = xf.reshape(S_local, LANES)
-            dev = _make_dev(a, st)
-            if st.is_seg:
-                y = segmented_spmv(dev, x2d)[:nb]
-            else:
-                y = panel_spmv(dev, x2d)
-                if st_spill is not None:  # HYB: add the segmented spill
-                    sp = {k[3:]: v for k, v in a.items()
-                          if k.startswith("sp_")}
-                    ys = segmented_spmv(_make_dev(sp, st_spill), x2d)
-                    n = max(y.shape[0], ys.shape[0])
-                    if y.shape[0] < n:
-                        y = jnp.pad(y, ((0, n - y.shape[0]), (0, 0)))
-                    if ys.shape[0] < n:
-                        ys = jnp.pad(ys, ((0, n - ys.shape[0]), (0, 0)))
-                    y = y + ys
-                y = y[:nb]
-            return jax.lax.psum(y, axis)
-
-        fn = shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(P(axis, None),) + (P(axis),) * len(names),
-            out_specs=P(),
-            check_vma=False,  # pallas_call out_shape carries no vma info
-        )
-        return jax.jit(fn)
+    def _x_in(self, x):
+        x = jnp.asarray(x)
+        if not self.gather_x:
+            return x
+        x = jnp.pad(x, [(0, self.x_rows - x.shape[0])]
+                    + [(0, 0)] * (x.ndim - 1))
+        return put_sharded(x, NamedSharding(self.mesh, P(self.axis)))
 
     def _matvec_traced(self, v, arrays):
-        """Traceable matvec (see ``RowShardedSpmv._matvec_traced``); the
-        SELL unpermute epilogue runs on the replicated psum'd y."""
-        if self.x2:
+        """Traceable matvec for composing into larger jitted programs
+        (``spmv_tpu.solve``): x is laid out by a sharding constraint, so
+        the whole caller — e.g. a Krylov loop — compiles as ONE SPMD
+        program over the mesh."""
+        if self.gather_x:
+            v = jnp.pad(v, (0, self.x_rows - v.shape[0]))
+            v = jax.lax.with_sharding_constraint(
+                v, NamedSharding(self.mesh, P(self.axis)))
+        return self._fn(v, arrays)
+
+
+class ColShardedSpmv(_Sharded):
+    """y = A·x with A column-partitioned (x sharded, partial-y psum)."""
+
+    def __init__(self, format: str, nrows: int, ncols: int, rows, cols, vals,
+                 mesh: Mesh, *, dtype: str = "f32", **fmt_kwargs):
+        format = format.lower()
+        self.x2 = _x2_mode(dtype)
+        if format == "bsr":
             raise NotImplementedError(
-                "traced composition covers the f32 plan-based shardings")
-        D = self.st.n_shards
-        xf = jnp.asarray(v, jnp.float32).reshape(-1)
-        xf = jnp.pad(xf, (0, D * self.cps - xf.shape[0]))
+                "column-sharded BSR not supported (a dense-Y psum per "
+                "product defeats the block-dense format); use "
+                "RowShardedSpmv('bsr', ...) or shard a matvec format")
+        self.format, self.mesh = format, mesh
+        self.axis = axis = mesh.axis_names[0]
+        self.nrows, self.ncols = nrows, ncols
+        D = self.D = mesh.shape[axis]
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        vals = np.asarray(vals)
+        self.cps = cps = cdiv(max(ncols, 1), D)
+        devs = []
+        for d in range(D):
+            sel = (cols >= d * cps) & (cols < (d + 1) * cps)
+            devs.append(shard_dev(format, self.x2, nrows, cps, rows[sel],
+                                  cols[sel] - d * cps, vals[sel],
+                                  **fmt_kwargs))
+        spec = NamedSharding(mesh, P(axis))
+        self.arrays = jax.tree.map(lambda a: put_sharded(a, spec),
+                                   stack(devs))
+        self._fn = self._build()
+
+    def _build(self):
+        axis = self.axis
+
+        def shard_fn(x, devs):
+            return jax.lax.psum(local(devs)(x[0]), axis)
+
+        return jax.jit(shard_map(shard_fn, mesh=self.mesh,
+                                 in_specs=(P(axis), P(axis)),
+                                 out_specs=P()))
+
+    def _blocks(self, x):
+        """(ncols, ...) → (D, cps, ...) column slabs."""
+        x = jnp.pad(x, [(0, self.D * self.cps - x.shape[0])]
+                    + [(0, 0)] * (x.ndim - 1))
+        return x.reshape((self.D, self.cps) + x.shape[1:])
+
+    def _x_in(self, x):
+        return put_sharded(self._blocks(jnp.asarray(x)),
+                           NamedSharding(self.mesh, P(self.axis)))
+
+    def _matvec_traced(self, v, arrays):
+        """Traceable matvec (see ``RowShardedSpmv._matvec_traced``)."""
         xs = jax.lax.with_sharding_constraint(
-            xf.reshape(D, self.cps),
-            NamedSharding(self.mesh, P(self.axis, None)))
-        y = self._fn(xs, *arrays)
-        if self._perm_whi is not None:
-            if y.shape[0] < 8:  # epilogue windows always slice 8 rows
-                y = jnp.pad(y, ((0, 8 - y.shape[0]), (0, 0)))
-            y = inverse_permute_blocks(self._perm_whi, self._perm_idx, y)
-        return y.reshape(-1)[: self.true_nrows]
-
-    def matvec(self, x):
-        if self.x2:
-            return self._matvec_x2(x)
-        xf = jnp.asarray(x, jnp.float32).reshape(-1)
-        if xf.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"x has {xf.shape[0]} entries, matrix has {self.st.ncols} columns")
-        D = self.st.n_shards
-        xf = jnp.pad(xf, (0, D * self.cps - xf.shape[0]))
-        xs = put_sharded(
-            xf.reshape(D, self.cps),
-            NamedSharding(self.mesh, P(self.axis, None)),
-        )
-        y = self._fn(xs, *self.arrays.values())
-        if self._perm_whi is not None:
-            # SELL: one unpermute epilogue on the full (replicated) y table
-            if y.shape[0] < 8:  # epilogue windows always slice 8 rows
-                y = jnp.pad(y, ((0, 8 - y.shape[0]), (0, 0)))
-            y = inverse_permute_blocks(self._perm_whi, self._perm_idx, y)
-        return y.reshape(-1)[: self.true_nrows]
-
-    def _matvec_x2(self, x):
-        """Double-single column-sharded matvec: hi/lo x slabs sharded,
-        per-shard (y_hi, y_lo) partials folded with TwoSum inside the
-        shard_map; the SELL unpermute (exact) runs host-side in fp64 via
-        the global σ-sort's ``perm``."""
-        x64 = np.asarray(x, dtype=np.float64).reshape(-1)
-        if x64.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"x has {x64.shape[0]} entries, matrix has "
-                f"{self.st.ncols} columns")
-        xh = x64.astype(np.float32)
-        xl = (x64 - xh.astype(np.float64)).astype(np.float32)
-        D = self.st.n_shards
-
-        def slabs(v):
-            out = np.zeros(D * self.cps, np.float32)
-            out[: v.size] = v
-            return put_sharded(
-                jnp.asarray(out.reshape(D, self.cps)),
-                NamedSharding(self.mesh, P(self.axis, None)))
-
-        yh, yl = self._fn(slabs(xh), slabs(xl), *self.arrays.values())
-        y = (np.asarray(yh, np.float64)
-             + np.asarray(yl, np.float64)).reshape(-1)
-        if self._x2_perm is not None:
-            n = self._x2_perm.size
-            out = np.zeros(max(n, y.size), np.float64)
-            out[self._x2_perm] = y[:n]
-            y = out
-        return y[: self.true_nrows]
-
-    __matmul__ = matvec
-
-    @property
-    def nrows(self) -> int:
-        return self.true_nrows
-
-    @property
-    def ncols(self) -> int:
-        return self.st.ncols
-
-    def _multi_fits(self, rhs: int) -> bool:
-        """Per-shard VMEM envelope of the fused multi-RHS kernels — the
-        joint per-kernel budget of ``device.multi_rhs_fits``, covering
-        both parts of a split plan."""
-        from spmv_tpu.device import multi_rhs_fits
-
-        parts = [(st.chunk, st.ns, st.pack, st.is_seg, st.w_rows,
-                  st.out_rows)
-                 for st in filter(None, (self.st, self.st_spill))]
-        return multi_rhs_fits(rhs, self.S_local, parts)
-
-    def _build_multi(self, rhs: int):
-        """shard_map'd fused multi-RHS pass: one plan-stream pass per
-        shard serves all R columns; ONE psum carries the (R, NB, 128)
-        partial stack (DESIGN.md fact 12)."""
-        from spmv_tpu.kernels.engines import (panel_spmv_multi,
-                                              segmented_spmv_multi)
-
-        st, axis, mesh = self.st, self.axis, self.mesh
-        st_spill = self.st_spill
-        S_local, cps = self.S_local, self.cps
-        names = list(self.arrays)
-        nb = cdiv(st.nrows, LANES)
-
-        def shard_fn(x_local, *plan):
-            a = dict(zip(names, (p[0] for p in plan)))
-            xr = x_local[0]  # (rhs·cps,) — column r's slab at [r·cps, ...)
-            tabs = []
-            for r in range(rhs):
-                xf = jnp.pad(xr[r * cps:(r + 1) * cps],
-                             (0, S_local * LANES - cps))
-                tabs.append(xf.reshape(S_local, LANES))
-            x2d = jnp.concatenate(tabs, axis=0)
-            dev = _make_dev(a, st)
-            if st.is_seg:
-                y = segmented_spmv_multi(dev, x2d, rhs).reshape(
-                    rhs, st.out_rows, LANES)[:, :nb]
-            else:
-                y = panel_spmv_multi(dev, x2d, rhs).reshape(
-                    rhs, st.out_rows, LANES)
-                if st_spill is not None:  # HYB spill part
-                    sp = {k[3:]: v for k, v in a.items()
-                          if k.startswith("sp_")}
-                    ys = segmented_spmv_multi(
-                        _make_dev(sp, st_spill), x2d, rhs).reshape(
-                            rhs, st_spill.out_rows, LANES)
-                    n = max(y.shape[1], ys.shape[1])
-                    if y.shape[1] < n:
-                        y = jnp.pad(y, ((0, 0), (0, n - y.shape[1]),
-                                        (0, 0)))
-                    if ys.shape[1] < n:
-                        ys = jnp.pad(ys, ((0, 0), (0, n - ys.shape[1]),
-                                          (0, 0)))
-                    y = y + ys
-                y = y[:, :nb]
-            return jax.lax.psum(y, axis)
-
-        return jax.jit(shard_map(
-            shard_fn, mesh=mesh,
-            in_specs=(P(axis, None),) + (P(axis),) * len(names),
-            out_specs=P(),
-            check_vma=False,
-        ))
-
-    def spmm(self, X):
-        """Column-sharded SpMM: for 2 ≤ R ≤ ``engines.MULTI_RHS_MAX``
-        (f32, within the per-shard VMEM envelope) the shards run the
-        fused multi-RHS pass with ONE psum for all R columns; otherwise
-        one psum'd matvec per column."""
-        from spmv_tpu.api import spmm as _spmm
-        from spmv_tpu.kernels.engines import MULTI_RHS_MAX
-
-        Xa = np.asarray(X)
-        R = Xa.shape[1] if Xa.ndim == 2 else 0
-        if (self.x2 or R < 2 or R > MULTI_RHS_MAX
-                or not self._multi_fits(R)):
-            return _spmm(self, X)
-        if Xa.shape[0] != self.st.ncols:
-            raise ValueError(
-                f"X must be ({self.st.ncols}, R), got {Xa.shape}")
-        if not hasattr(self, "_multi_fns"):
-            self._multi_fns = {}
-        fn = self._multi_fns.get(R)
-        if fn is None:
-            fn = self._multi_fns[R] = self._build_multi(R)
-        D = self.st.n_shards
-        slabs = np.zeros((D, R * self.cps), np.float32)
-        for r in range(R):
-            col = np.zeros(D * self.cps, np.float32)
-            col[: self.st.ncols] = np.asarray(Xa[:, r], np.float32)
-            slabs[:, r * self.cps:(r + 1) * self.cps] = col.reshape(
-                D, self.cps)
-        xs = put_sharded(jnp.asarray(slabs),
-                         NamedSharding(self.mesh, P(self.axis, None)))
-        Y3 = fn(xs, *self.arrays.values())  # (R, NB, 128), replicated
-        cols = []
-        for r in range(R):
-            y = Y3[r]
-            if self._perm_whi is not None:  # SELL σ-unpermute per column
-                if y.shape[0] < 8:
-                    y = jnp.pad(y, ((0, 8 - y.shape[0]), (0, 0)))
-                y = inverse_permute_blocks(self._perm_whi, self._perm_idx,
-                                           y)
-            cols.append(jnp.asarray(y).reshape(-1)[: self.true_nrows])
-        return jnp.stack(cols, axis=1)
+            self._blocks(v), NamedSharding(self.mesh, P(self.axis)))
+        return self._fn(xs, arrays)

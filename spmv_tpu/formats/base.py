@@ -1,49 +1,6 @@
-"""Stripe-local device-layout plans shared by the five format conversions.
-
-Both engines consume the same geometric decomposition (see docs/DESIGN.md):
-
-* y is tiled into **128-row blocks** (the TPU lane dimension);
-* x is tiled into **128-column stripes** = rows of the ``(S,128)`` x table;
-* the nonzeros are laid out as a flat stream of (8,128) **subtiles** such
-  that every 128-wide sublane row is *stripe-pure* (all its columns fall in
-  one stripe) and every subtile is *block-pure* (all its rows fall in one
-  y block) with stripe span ≤ 8.
-
-That makes the x-gather exact and cheap in-kernel: load one (8,128) window
-of the x table at the subtile's base stripe, sublane-gather by the per-row
-stripe offset ``hi`` and lane-gather by the in-stripe column ``lo`` — both
-ride in a single uint16 stream ``loc = hi·128 + lo``.  This replaces v1's
-O(W) select-loop gather, which left the kernels VPU-bound at ~11% of the
-HBM roofline.
-
-* **PanelPlan** (engine 1): per (block, stripe) a padded mini-panel — slot
-  ``k`` of row ``r`` lives at sublane row ``panel_start+k``, lane ``r&127``.
-  Used by ELL and SELL-C-σ (the TPU analog of ELLPACK's dense padding,
-  ``ell.c:121-164`` / ``sigma_c.c:156-202``).
-* **SegPlan** (engine 2): the (block, stripe, row)-sorted nnz stream packed
-  127-per-sublane-row (lane 0 is a guaranteed zero pad so the in-kernel
-  prefix-difference needs no masking); per-(sublane row, block-local row id)
-  segment bounds ride as uint8 ``gidx``/``pidx`` streams.  Used by CSR, COO
-  and CMRS — the deterministic TPU replacement for the reference's atomic
-  scatter (``Coo.cl:4-22``) and strip scheduling (``Cmrs.cl:5-44``).
-
-All builders are pure NumPy — the vectorized replacement of the reference's
-per-driver ``fscanf`` conversion loops (``coo.c:75-84``, ``csr.c:68-91``,
-``ell.c:68-164``, ``sigma_c.c:71-204``, ``cmrs.c:72-117``).
-"""
+"""Small integer helpers shared by the format conversions."""
 
 from __future__ import annotations
-
-from dataclasses import dataclass
-
-import numpy as np
-
-LANES = 128  # y rows per block / x cols per stripe; the lane dimension
-SUBLANES = 8  # sublane rows per subtile; also the x-window height
-ROW_CAP = LANES - 1  # real elements per seg sublane row (lane 0 = zero pad)
-DEFAULT_CHUNK = 64  # sublane rows fetched per grid step (8 subtiles)
-W_CAP = 256  # max y-block span per aligned 128-row stream window (u8 w)
-W_ALIGN = 8  # y windows round to whole sublane groups
 
 
 def cdiv(a: int, b: int) -> int:
@@ -52,623 +9,3 @@ def cdiv(a: int, b: int) -> int:
 
 def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
-
-
-def x_stripes(ncols: int) -> int:
-    """Rows of the (S,128) x table: at least 8 so every (8,128) window
-    slice stays in bounds."""
-    return max(cdiv(max(ncols, 1), LANES), SUBLANES)
-
-
-@dataclass
-class PanelPlan:
-    """Engine-1 device layout: P-packed stripe-pure padded mini-panels.
-
-    Like ``SegPlan`` each of the TM×128 quad slots holds ``pack`` elements
-    in separate value/column planes (row ``i``'s k-th element sits at
-    sublane row ``panel_start + k//P``, plane ``k%P``, lane ``i&127``);
-    there is no prefix, so the stream is just values + lo + shared hi:
-    (4P + P + 1)/P = 5.25 B per element slot at P=4 (vs 6 unpacked)."""
-
-    vals: np.ndarray  # (TR, P, 128) f32 — value planes
-    lo: np.ndarray  # (TR, P, 128) u8 — in-stripe column per plane
-    hi: np.ndarray  # (TR, 128) u8 — stripe offset, uniform per sublane row
-    row_block: np.ndarray  # (TR,) i32 — y block per sublane row
-    sub_base: np.ndarray  # (TR//8,) i32 — x window base stripe per subtile
-    nrows: int
-    ncols: int
-    nnz: int  # true nonzeros
-    chunk: int  # sublane rows per grid step
-    pack: int  # P — elements per quad slot
-
-    @property
-    def padded_slots(self) -> int:
-        """Element capacity (each quad slot holds ``pack`` element slots)."""
-        return self.vals.shape[0] * LANES * self.pack
-
-    @property
-    def padding_ratio(self) -> float:
-        return self.padded_slots / max(self.nnz, 1)
-
-    @property
-    def stream_bytes(self) -> int:
-        """Exact HBM bytes of the plan streams per SpMV."""
-        return self.vals.nbytes + self.lo.nbytes + self.hi.nbytes
-
-
-@dataclass
-class SegPlan:
-    """Engine-2 device layout: the P-packed stripe-pure segmented stream.
-
-    Each of the TM×128 *quad slots* holds ``pack`` (P ∈ {1,2,4}) elements in
-    separate value/column planes; the kernel combines them on the VPU
-    (``p = Σ_p v_p · x[lo_p]``) before the MXU prefix, so prefix cycles and
-    segment-bound bytes per element drop by P× (measured 42 → 113 Gelem/s
-    at P=4 on the bench chip, ``scripts/probe_pack.py``).  Per quad slot the
-    stream is 4P B values + P B lo + 1 B hi + 1 B gidx = (5P+2)/P bytes per
-    element (5.5 at P=4, vs 8 for the round-1 unpacked layout).
-
-    ``gidx`` is *filled*: ``gidx[srow, lid]`` = last quad position of any
-    segment with lid' ≤ lid in the sublane row (0 if none), a running max —
-    the kernel derives the old ``pidx`` as a one-lane shift, saving the
-    fourth index stream entirely.  ``hi`` is the per-slot stripe offset
-    (uniform within each sublane row — the exactness condition of the
-    two-step gather).
-    """
-
-    vals: np.ndarray  # (TM, P, 128) f32 — value planes
-    lo: np.ndarray  # (TM, P, 128) u8 — in-stripe column per plane
-    hi: np.ndarray  # (TM, 128) u8 — stripe offset, uniform per sublane row
-    gidx: np.ndarray  # (TM, 128) u8 — filled last-quad-position running max
-    row_block: np.ndarray  # (TM,) i32 — y block per sublane row
-    sub_base: np.ndarray  # (TM//8,) i32
-    nrows: int
-    ncols: int
-    nnz: int
-    chunk: int
-    pack: int  # P — elements per quad slot
-    # two-bank layout (``formats.bank``): bits 4-6 = bank-1 stripe offset
-    # at the lane's table position, bits 0..P-1 = per-plane bank selector
-    # at the lane's slot position.  None = classic/pooled single-bank
-    # stream (``hi`` is then per-lane for pooled plans, uniform for
-    # classic ones — the kernels don't care).
-    b2: np.ndarray | None = None
-
-    @property
-    def padded_slots(self) -> int:
-        """Element capacity (each quad slot holds ``pack`` element slots)."""
-        return self.vals.shape[0] * LANES * self.pack
-
-    @property
-    def padding_ratio(self) -> float:
-        return self.padded_slots / max(self.nnz, 1)
-
-    @property
-    def stream_bytes(self) -> int:
-        """Exact HBM bytes of the plan streams per SpMV."""
-        return (self.vals.nbytes + self.lo.nbytes + self.hi.nbytes
-                + self.gidx.nbytes
-                + (self.b2.nbytes if self.b2 is not None else 0))
-
-
-def _emit_rows(subrow_blk: np.ndarray, subrow_stp: np.ndarray, S: int,
-               chunk: int):
-    """Place the ordered sublane-row stream, inserting pad rows so that
-
-    (a) every aligned 8-row group's **stripes** fit one (8,128) window of
-        the x table (min-max span < 8 — the exactness condition of the
-        in-kernel two-step gather); there is NO block-purity requirement:
-        the windowed y-reduction (``kernels.engines``) sums rows by their
-        streamed ``w`` target, so rows of different y blocks share groups
-        freely (round-2's block-pure subtiles cost ×1.7 padding on
-        scattered matrices);
-    (b) every aligned 128-row window's **block** span stays < ``W_CAP``
-        (the streamed per-row window target ``w`` is u8).
-
-    Subrows arrive sorted by (block, stripe); rows of one (block, stripe)
-    run are identical, so pads only appear at run boundaries.  Returns
-    ``(row_of_subrow (n,), row_blk (TM,), row_stp (TM,), sub_base
-    (TM//8,), TM)`` with TM a multiple of ``chunk``; pad rows replicate
-    their predecessor's (block, stripe) so every constraint still holds.
-
-    The per-subrow loop runs in C++ when ``native/plan_group.cpp``
-    provides ``emit_rows`` (identical semantics, for 100M-nnz matrices).
-    """
-    from spmv_tpu.formats import native_group
-
-    n = subrow_blk.size
-    nat = native_group.emit_rows(subrow_blk, subrow_stp, W_CAP)
-    if nat is not None:
-        row_of, out_blk, out_stp = nat
-    else:
-        row_of = np.empty(n, dtype=np.int64)
-        out_blk: list[int] = []
-        out_stp: list[int] = []
-        gmin = gmax = wmin = wmax = 0
-        for i in range(n):
-            b, s = int(subrow_blk[i]), int(subrow_stp[i])
-            t = len(out_blk)
-            if t % SUBLANES and (max(gmax, s) - min(gmin, s) >= SUBLANES):
-                pb, ps = out_blk[-1], out_stp[-1]
-                while len(out_blk) % SUBLANES:
-                    out_blk.append(pb)
-                    out_stp.append(ps)
-            t = len(out_blk)
-            if t % LANES and (max(wmax, b) - min(wmin, b) >= W_CAP):
-                pb, ps = out_blk[-1], out_stp[-1]
-                while len(out_blk) % LANES:
-                    out_blk.append(pb)
-                    out_stp.append(ps)
-            t = len(out_blk)
-            if t % SUBLANES == 0:
-                gmin = gmax = s
-            else:
-                gmin, gmax = min(gmin, s), max(gmax, s)
-            if t % LANES == 0:
-                wmin = wmax = b
-            else:
-                wmin, wmax = min(wmin, b), max(wmax, b)
-            row_of[i] = t
-            out_blk.append(b)
-            out_stp.append(s)
-        out_blk = np.asarray(out_blk, dtype=np.int64)
-        out_stp = np.asarray(out_stp, dtype=np.int64)
-
-    T = max(out_blk.size, 1)
-    TM = round_up(T, max(chunk, SUBLANES))
-    row_blk = np.zeros(TM, dtype=np.int32)
-    row_stp = np.zeros(TM, dtype=np.int32)
-    if out_blk.size:
-        row_blk[: out_blk.size] = out_blk
-        row_stp[: out_stp.size] = out_stp
-        # trailing pads replicate the last row (keeps the block span of the
-        # tail window tight and the stripe in range)
-        row_blk[out_blk.size :] = out_blk[-1]
-        row_stp[out_stp.size :] = out_stp[-1]
-    sub_base = np.minimum(
-        row_stp.reshape(-1, SUBLANES).min(axis=1),
-        max(S - SUBLANES, 0)).astype(np.int32)
-    return row_of, row_blk, row_stp, sub_base, TM
-
-
-def _run_heads(keys: np.ndarray):
-    """Group a sorted key array: returns (run_id_per_elem, run_sizes)."""
-    n = keys.size
-    head = np.ones(n, dtype=bool)
-    head[1:] = keys[1:] != keys[:-1]
-    run_id = np.cumsum(head) - 1
-    run_sizes = np.bincount(run_id)
-    return run_id, run_sizes, head
-
-
-def _empty_panel(nrows, ncols, chunk, pack: int = 1) -> PanelPlan:
-    return PanelPlan(
-        vals=np.zeros((chunk, pack, LANES), np.float32),
-        lo=np.zeros((chunk, pack, LANES), np.uint8),
-        hi=np.zeros((chunk, LANES), np.uint8),
-        row_block=np.zeros(chunk, np.int32),
-        sub_base=np.zeros(chunk // SUBLANES, np.int32),
-        nrows=nrows, ncols=ncols, nnz=0, chunk=chunk, pack=pack,
-    )
-
-
-def _empty_seg(nrows, ncols, chunk, pack: int = 1) -> SegPlan:
-    return SegPlan(
-        vals=np.zeros((chunk, pack, LANES), np.float32),
-        lo=np.zeros((chunk, pack, LANES), np.uint8),
-        hi=np.zeros((chunk, LANES), np.uint8),
-        gidx=np.zeros((chunk, LANES), np.uint8),
-        row_block=np.zeros(chunk, np.int32),
-        sub_base=np.zeros(chunk // SUBLANES, np.int32),
-        nrows=nrows, ncols=ncols, nnz=0, chunk=chunk, pack=pack,
-    )
-
-
-# Measured quad-slot processing rates of the packed segmented kernel
-# (scripts/probe_pack.py on the bench v5e: 48.7/70.3/113.1 Gelem/s at
-# P=1/2/4 → per-quad 48.7/35.2/28.3 G/s) and the in-engine streaming
-# ceiling (~600 GB/s at 12-14 arrays).  Used to pick P per matrix.
-_QUAD_RATE = {1: 48e9, 2: 35e9, 4: 28e9}
-_STREAM_BW = 600e9
-
-
-def _pick_pack(seg_sizes: np.ndarray, seg_run: np.ndarray) -> int:
-    """Elements per quad slot minimizing modeled time over the REAL dense
-    layout: per run the quad count is max(ceil(elements/P), nsegs) — the
-    dense packing's lower bound (≤1 segment boundary per quad) — and runs
-    round up to whole 127-quad sublane rows (the row quantization that an
-    element-only model badly underestimates on scattered matrices)."""
-    nruns = int(seg_run.max()) + 1 if seg_run.size else 1
-    run_els = np.bincount(seg_run, weights=seg_sizes.astype(np.float64),
-                          minlength=nruns).astype(np.int64)
-    run_nsegs = np.bincount(seg_run, minlength=nruns)
-    best_p, best_t = 1, np.inf
-    for p in (1, 2, 4):
-        quads = np.maximum(-(-run_els // p), run_nsegs)
-        slots = float(np.sum(-(-quads // ROW_CAP))) * ROW_CAP
-        t = max(slots * (5 * p + 2) / _STREAM_BW, slots / _QUAD_RATE[p])
-        if t < best_t:
-            best_p, best_t = p, t
-    return best_p
-
-
-def _pack_run_slots(seg_sizes: np.ndarray, seg_run: np.ndarray,
-                    P: int) -> np.ndarray:
-    """Start slot of each segment within its run under dense packing:
-    segment j starts right after j−1's end unless (a) it would END in
-    j−1's end quad (the kernel's ``c2`` correction handles at most one
-    segment boundary per quad), or (b) the shared quad is the LAST quad
-    of a sublane row — the segment then spills into the next row and its
-    row-portion would be exactly the c2-subtracted head with ``gi == pi``
-    (a zero piece); in either case it starts at the next quad.  Runs in
-    C++ when ``native/plan_group.cpp`` is available (identical
-    semantics)."""
-    from spmv_tpu.formats import native_group
-
-    nat = native_group.pack_run_slots(seg_sizes, seg_run, P)
-    if nat is not None:
-        return nat
-    nseg = seg_sizes.size
-    f = np.empty(nseg, dtype=np.int64)
-    cur, prev_end = -1, -1
-    for j in range(nseg):
-        if seg_run[j] != cur:
-            cur, fj = seg_run[j], 0
-        else:
-            fj = prev_end + 1
-            if fj % P and ((fj + seg_sizes[j] - 1) // P == prev_end // P
-                           or (fj // P) % ROW_CAP == ROW_CAP - 1):
-                fj = (prev_end // P + 1) * P
-        f[j] = fj
-        prev_end = fj + seg_sizes[j] - 1
-    return f
-
-
-def _pick_pack_panel(widths: np.ndarray) -> int:
-    """Panel-engine P from the per-(block,stripe) widths K_bs: every panel
-    pads all 128 lanes to ceil(K_bs/P) quad columns.  Uses the (slightly
-    conservative) seg quad rates — the panel kernel does strictly less work
-    per quad."""
-    best_p, best_t = 1, np.inf
-    for p in (1, 2, 4):
-        quads = LANES * float(np.sum(-(-widths // p)))
-        t = max(quads * (5 * p + 1) / _STREAM_BW, quads / _QUAD_RATE[p])
-        if t < best_t:
-            best_p, best_t = p, t
-    return best_p
-
-
-# Above this many triplets the pack choosers decide P from a contiguous
-# row-range sample: the histograms they need (per-run elements/segments)
-# are statistics, and a row-range slice preserves the local run
-# structure a uniform subsample would thin out.  np.unique over the full
-# 71M-nnz beyond-VMEM bench matrix measured 245 s on the bench host for
-# a decision a 1/9th slice reproduces.
-_PACK_SAMPLE_NNZ = 8_000_000
-
-
-def _pack_sample(rows, cols, nrows: int):
-    """(rows, cols) restricted to a leading row range holding roughly
-    ``_PACK_SAMPLE_NNZ`` elements (whole matrix if already small)."""
-    if rows.size <= 2 * _PACK_SAMPLE_NNZ:
-        return rows, cols
-    rmax = max(int(nrows * (_PACK_SAMPLE_NNZ / rows.size)), 1)
-    sel = rows < rmax
-    if int(sel.sum()) < _PACK_SAMPLE_NNZ // 8:
-        # degenerate distribution (the leading row range holds almost
-        # nothing) — fall back to an order-independent strided subsample;
-        # a leading slice of a column-sorted input would misrepresent the
-        # run structure
-        k = max(rows.size // _PACK_SAMPLE_NNZ, 1)
-        return rows[::k][:_PACK_SAMPLE_NNZ], cols[::k][:_PACK_SAMPLE_NNZ]
-    return rows[sel], cols[sel]
-
-
-def panel_pack_for(rows, cols, nrows: int, ncols: int) -> int:
-    """The panel-engine P the full matrix would pick (dist-layer analog of
-    ``seg_pack_for``)."""
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    if rows.size == 0:
-        return 1
-    rows, cols = _pack_sample(rows, cols, nrows)
-    nstripes = cdiv(max(ncols, 1), LANES)
-    gkey = (((rows >> 7) * nstripes + (cols >> 7)) * (nrows + 1)) + rows
-    ug, counts = np.unique(gkey, return_counts=True)
-    pair = ug // (nrows + 1)
-    upair, inv = np.unique(pair, return_inverse=True)
-    widths = np.zeros(upair.size, dtype=np.int64)
-    np.maximum.at(widths, inv, counts)
-    return _pick_pack_panel(widths)
-
-
-def seg_pack_for(rows, cols, nrows: int, ncols: int) -> int:
-    """The packed-engine P the full matrix would pick — the dist layer
-    computes it once and passes it to every shard build so the unified
-    shard plans share one stream layout."""
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    if rows.size == 0:
-        return 1
-    rows, cols = _pack_sample(rows, cols, nrows)
-    nstripes = cdiv(max(ncols, 1), LANES)
-    segkey = ((rows >> 7) * nstripes + (cols >> 7)) * (nrows + 1) + rows
-    useg, sizes = np.unique(segkey, return_counts=True)
-    _, seg_run = np.unique(useg // (nrows + 1), return_inverse=True)
-    return _pick_pack(sizes, seg_run)
-
-
-def build_seg_plan(
-    rows: np.ndarray,
-    cols: np.ndarray,
-    vals: np.ndarray,
-    nrows: int,
-    ncols: int,
-    *,
-    chunk: int = DEFAULT_CHUNK,
-    dtype=np.float32,
-    pack: int | None = None,
-    pool: bool | None = None,
-    bank: bool | None = False,
-) -> SegPlan:
-    """Pack COO triplets (any order; duplicates sum in-kernel) into the
-    P-packed stripe-pure segmented stream (see ``SegPlan``).
-
-    A *segment* is a (row, stripe) group; segments pack DENSELY within
-    their (block, stripe) run — boundaries fall mid-quad, at most one per
-    quad slot, flagged by the MSB of ``lo`` so the kernel's ``c2``
-    correction keeps the prefix difference exact (``kernels.engines``).
-    The only alignment pad: a segment that would end in its predecessor's
-    end quad starts at the next quad instead (``_pack_run_slots``).
-    ``pack=None`` picks P from the run/segment histogram (``_pick_pack``).
-
-    ``pool`` selects the pooled per-lane-hi layout (``formats.pool``):
-    rows of one (block, 8-stripe window) pool share sublane rows, removing
-    the per-run row quantization on band/FEM matrices (measured −17 %
-    quads on synthetic cant at P=4).  ``None`` prices both layouts and
-    keeps the cheaper; when pooling is picked and ``pack`` was given, the
-    caller's P wins (the dist layer unifies P across shards).
-
-    ``bank`` selects the TWO-bank pooled layout (``formats.bank``): each
-    sublane row carries two lane→stripe maps plus a per-element selector
-    plane, raising the conflict-bound row fill on scattered matrices.
-    ``None`` prices all three layouts; ``False`` (the default) restricts
-    the choice to classic/pooled — the banked stream needs the banked
-    kernel path, so callers that re-derive or unify layouts (f32x2, the
-    dist layer) pass ``False`` explicitly.
-    """
-    from spmv_tpu import cache as _cache
-
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    vals = np.asarray(vals)
-    nnz = rows.size
-    if nnz == 0:
-        return _empty_seg(nrows, ncols, chunk, pack or 1)
-    hit = _cache.plan_lookup("seg5", rows, cols, vals, nrows, ncols,
-                             (chunk, pack or 0, pool, bool(bank) if bank
-                              is not None else None), SegPlan)
-    if hit is not None:
-        return hit
-
-    def _store(plan):
-        _cache.plan_store("seg5", rows, cols, vals, nrows, ncols,
-                          (chunk, pack or 0, pool, bool(bank) if bank
-                           is not None else None), plan)
-        return plan
-
-    if bank or (bank is None and pool is None):
-        from spmv_tpu.formats.bank import build_seg_plan_banked, price_layouts3
-
-        if bank:
-            layout, P_b = "bank", pack or 2
-        else:
-            layout, P_b = price_layouts3(rows, cols, nrows, ncols)
-        if layout == "bank":
-            return _store(build_seg_plan_banked(
-                rows, cols, vals, nrows, ncols, chunk=chunk, dtype=dtype,
-                pack=pack if pack is not None else P_b))
-        if layout == "pool":
-            from spmv_tpu.formats.pool import build_seg_plan_pooled
-
-            return _store(build_seg_plan_pooled(
-                rows, cols, vals, nrows, ncols, chunk=chunk, dtype=dtype,
-                pack=pack if pack is not None else P_b))
-        # layout == "classic": fall through to the classic walk below
-    elif pool is None or pool:
-        from spmv_tpu.formats.pool import build_seg_plan_pooled, price_layouts
-
-        if pool:
-            from spmv_tpu.formats.pool import pick_pack_pooled
-
-            use_pool = True
-            P_pool = pack if pack is not None else pick_pack_pooled(
-                rows, cols, nrows, ncols)
-        else:
-            use_pool, P_pool = price_layouts(rows, cols, nrows, ncols)
-        if use_pool:
-            return _store(build_seg_plan_pooled(
-                rows, cols, vals, nrows, ncols, chunk=chunk, dtype=dtype,
-                pack=pack if pack is not None else P_pool))
-
-    S = x_stripes(ncols)
-
-    blk = rows >> 7
-    stp = cols >> 7
-    order = np.lexsort((cols, rows, stp, blk))
-    r, c, v = rows[order], cols[order], vals[order]
-    blk, stp = blk[order], stp[order]
-
-    # (block, stripe) runs; (row) segments within each run.
-    nstripes = cdiv(max(ncols, 1), LANES)
-    runkey = blk * nstripes + stp
-    run_id, run_sizes, _ = _run_heads(runkey)
-    seg_id, seg_sizes, seg_head = _run_heads(runkey * (nrows + 1) + r)
-    nseg = seg_sizes.size
-    seg_run = run_id[seg_head]
-    P = pack if pack is not None else _pick_pack(seg_sizes, seg_run)
-
-    # Dense per-run slot packing: segments pack contiguously (boundaries
-    # mid-quad, ≤1 per quad — the kernel's c2 correction); the walk only
-    # inserts a quad-alignment pad when a segment would end in its
-    # predecessor's end quad.
-    f = _pack_run_slots(seg_sizes, seg_run, P)
-    seg_end = f + seg_sizes - 1
-    run_last = np.searchsorted(seg_run, np.arange(run_sizes.size),
-                               side="right") - 1
-    run_quads = -(-(seg_end[run_last] + 1) // P)
-    run_nsub = -(-run_quads // ROW_CAP)
-    subrow_start = np.zeros(run_sizes.size + 1, dtype=np.int64)
-    np.cumsum(run_nsub, out=subrow_start[1:])
-
-    run_head_elem = np.zeros(nnz, dtype=bool)
-    run_head_elem[np.searchsorted(run_id, np.arange(run_sizes.size))] = True
-    subrow_blk = np.repeat(blk[run_head_elem], run_nsub)
-    subrow_stp = np.repeat(stp[run_head_elem], run_nsub)
-
-    row_of, row_blk, row_stp, sub_base, TM = _emit_rows(
-        subrow_blk, subrow_stp, S, chunk)
-
-    # Element placement: slot f_seg + rank, quad slot//P, plane slot%P.
-    seg_estarts = np.zeros(nseg + 1, dtype=np.int64)
-    np.cumsum(seg_sizes, out=seg_estarts[1:])
-    k = np.arange(nnz, dtype=np.int64) - seg_estarts[seg_id]
-    slot = f[seg_id] + k
-    q_in_run = slot // P
-    plane = slot % P
-    qpos = 1 + q_in_run % ROW_CAP  # lane 0 reserved as the zero pad
-    erow = row_of[subrow_start[seg_run[seg_id]] + q_in_run // ROW_CAP]
-    epos = qpos
-
-    v3d = np.zeros((TM, P, LANES), dtype=dtype)
-    lo3d = np.zeros((TM, P, LANES), dtype=np.uint8)
-    v3d[erow, plane, epos] = v
-    # MSB of lo marks elements in a quad shared with the predecessor's end
-    # (they belong to the NEXT segment — the kernel's c2 subtracts them
-    # from the prefix at that quad).  Zero extra stream bytes.
-    shared = (f[seg_id] % P != 0) & (q_in_run == f[seg_id] // P)
-    lo3d[erow, plane, epos] = ((c & (LANES - 1))
-                               | (shared.astype(np.int64) << 7)
-                               ).astype(np.uint8)
-    # hi is uniform per sublane row (the two-step gather's exactness
-    # condition) — pad slots carry the row's hi too.
-    row_hi = (row_stp.astype(np.int64)
-              - sub_base[np.arange(TM) // SUBLANES].astype(np.int64))
-    assert row_hi.size == 0 or (0 <= row_hi.min()
-                                and row_hi.max() < SUBLANES)
-    hi2d = np.ascontiguousarray(
-        np.broadcast_to(row_hi.astype(np.uint8)[:, None], (TM, LANES)))
-
-    # Filled gidx: per (sublane row, lid) the last element's quad position,
-    # then a running max along lanes (absent lids inherit the previous
-    # segment's end; the kernel's lane shift turns that into the pidx
-    # bound).  Element order groups each (row, lid) contiguously.
-    lid_e = (r & (LANES - 1)).astype(np.int64)
-    gkey = erow * LANES + lid_e
-    _, g_sizes, g_head = _run_heads(gkey)
-    g_last = np.flatnonzero(g_head) + g_sizes - 1
-    gidx_raw = np.zeros((TM, LANES), dtype=np.uint8)
-    gidx_raw[erow[g_last], lid_e[g_last]] = epos[g_last]
-    gidx = np.maximum.accumulate(gidx_raw, axis=1)
-
-    plan = SegPlan(
-        vals=v3d, lo=lo3d, hi=hi2d, gidx=gidx,
-        row_block=row_blk, sub_base=sub_base,
-        nrows=nrows, ncols=ncols, nnz=nnz, chunk=chunk, pack=P,
-    )
-    return _store(plan)
-
-
-def build_panel_plan(
-    rows: np.ndarray,
-    cols: np.ndarray,
-    vals: np.ndarray,
-    nrows: int,
-    ncols: int,
-    *,
-    chunk: int = DEFAULT_CHUNK,
-    dtype=np.float32,
-    pack: int | None = None,
-) -> PanelPlan:
-    """Pack COO triplets into P-packed stripe-pure padded mini-panels.
-
-    Per (128-row block, 128-col stripe): width K_bs = max over the block's
-    rows of that row's element count in the stripe, padded to whole quads
-    (multiples of P); row ``i``'s k-th element lands at sublane row
-    ``panel_start + k//P``, plane ``k%P``, lane ``i&127``; short rows pad
-    with explicit zeros (the reference left ELL pad values uninitialized,
-    ``ell.c:147-151``).
-    """
-    from spmv_tpu import cache as _cache
-
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    vals = np.asarray(vals)
-    nnz = rows.size
-    if nnz == 0:
-        return _empty_panel(nrows, ncols, chunk, pack or 1)
-    hit = _cache.plan_lookup("panel3", rows, cols, vals, nrows, ncols,
-                             (chunk, pack or 0), PanelPlan)
-    if hit is not None:
-        return hit
-    S = x_stripes(ncols)
-
-    blk = rows >> 7
-    stp = cols >> 7
-    order = np.lexsort((cols, rows, stp, blk))
-    r, c, v = rows[order], cols[order], vals[order]
-    blk, stp = blk[order], stp[order]
-
-    nstripes = cdiv(max(ncols, 1), LANES)
-    run_key = blk * nstripes + stp
-    run_id, run_sizes, _ = _run_heads(run_key)
-    run_starts = np.zeros(run_sizes.size + 1, dtype=np.int64)
-    np.cumsum(run_sizes, out=run_starts[1:])
-
-    # k = rank of the element within its (row, stripe) group.
-    grp_id, grp_sizes, grp_head = _run_heads(run_key * (nrows + 1) + r)
-    grp_starts = np.zeros(grp_sizes.size + 1, dtype=np.int64)
-    np.cumsum(grp_sizes, out=grp_starts[1:])
-    k = np.arange(nnz, dtype=np.int64) - grp_starts[grp_id]
-
-    # K_bs = max group size within each run, in quad columns.
-    run_of_grp = run_id[grp_head]
-    K_bs = np.zeros(run_sizes.size, dtype=np.int64)
-    np.maximum.at(K_bs, run_of_grp, grp_sizes)
-    P = pack if pack is not None else _pick_pack_panel(K_bs)
-    K_q = -(-K_bs // P)
-
-    subrow_start = np.zeros(run_sizes.size + 1, dtype=np.int64)
-    np.cumsum(K_q, out=subrow_start[1:])
-    elem_subrow = subrow_start[run_id] + k // P
-    plane = k % P
-
-    heads = np.zeros(nnz, dtype=bool)
-    heads[run_starts[:-1]] = True
-    subrow_blk = np.repeat(blk[heads], K_q)
-    subrow_stp = np.repeat(stp[heads], K_q)
-
-    row_of, row_blk, row_stp, sub_base, TR = _emit_rows(
-        subrow_blk, subrow_stp, S, chunk)
-    final_row = row_of[elem_subrow]
-    lane = r & (LANES - 1)
-
-    v3d = np.zeros((TR, P, LANES), dtype=dtype)
-    lo3d = np.zeros((TR, P, LANES), dtype=np.uint8)
-    v3d[final_row, plane, lane] = v
-    lo3d[final_row, plane, lane] = (c & (LANES - 1)).astype(np.uint8)
-    # hi is uniform per sublane row (gather exactness) — pads included.
-    row_hi = (row_stp.astype(np.int64)
-              - sub_base[np.arange(TR) // SUBLANES].astype(np.int64))
-    assert row_hi.size == 0 or (0 <= row_hi.min()
-                                and row_hi.max() < SUBLANES)
-    hi2d = np.ascontiguousarray(
-        np.broadcast_to(row_hi.astype(np.uint8)[:, None], (TR, LANES)))
-
-    plan = PanelPlan(
-        vals=v3d, lo=lo3d, hi=hi2d, row_block=row_blk, sub_base=sub_base,
-        nrows=nrows, ncols=ncols, nnz=nnz, chunk=chunk, pack=P,
-    )
-    _cache.plan_store("panel3", rows, cols, vals, nrows, ncols,
-                      (chunk, pack or 0), plan)
-    return plan

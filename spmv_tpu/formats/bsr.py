@@ -2,58 +2,76 @@
 
 Framework extension beyond the reference (which is strictly single-vector,
 ``coo.c:163-168``).  Only the nonempty (128-row block, 128-col stripe)
-tiles are materialized densely; ``Y = A @ X`` is then one batched matmul on
-the MXU plus a segment-sum over block rows — entirely XLA, no Pallas
-needed, because with R right-hand sides the arithmetic intensity is
-R × SpMV's and the systolic array is the right unit.
+tiles are materialized densely; ``Y = A @ X`` is then one batched dense
+matmul plus a segment-sum over block rows — plain XLA, because with R
+right-hand sides the arithmetic intensity is R × SpMV's and the matrix
+units are the right tool.
 
 Trade-off: dense tiles inflate memory/traffic by ``fill = dense slots/nnz``
-(~13× on the cant-scale band matrix), but for R ≳ 32 the MXU pays for it —
-measured 135 Gnnz·vec/s at R=128 on one v5e chip vs ~40 Gnnz/s for the
-best matvec format run R times.  ``from_coo`` refuses matrices whose fill
-exceeds ``max_fill`` (hypersparse inputs should loop a matvec format
-instead).
+(17.7× on the cant-scale band matrix); only a large R can pay for that.
+``from_coo`` refuses matrices whose fill exceeds ``max_fill`` (hypersparse
+inputs should use a matvec format's ``matmat`` instead).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from functools import partial
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from spmv_tpu.formats.base import LANES, cdiv
+from spmv_tpu.device import DeviceOperator
+from spmv_tpu.formats.base import cdiv
 
-__all__ = ["BSRMatrix"]
+__all__ = ["BSRMatrix", "Blocks"]
+
+LANES = 128  # tile edge
 
 
-@partial(jax.jit, static_argnames=("nb", "ns", "nrows", "precision"))
-def _bsr_matmat(tiles, tile_blk, tile_stp, X, *, nb, ns, nrows, precision):
-    R = X.shape[1]
-    Xp = jnp.pad(X, ((0, ns * LANES - X.shape[0]), (0, 0)))
-    Xg = Xp.reshape(ns, LANES, R)[tile_stp]  # (T,128,R) stripe per tile
-    P = jax.lax.dot_general(
-        tiles, Xg, (((2,), (1,)), ((0,), (0,))),
-        preferred_element_type=jnp.float32,
-        precision=(jax.lax.Precision.HIGHEST if precision == "highest"
-                   else jax.lax.Precision.DEFAULT),
-    )  # (T,128,R)
-    Y = jax.ops.segment_sum(P, tile_blk, num_segments=nb)
-    return Y.reshape(nb * LANES, R)[:nrows]
+@dataclass(frozen=True)
+class Blocks:
+    """Device container: dense (T, 128, 128) tiles at (block row, column
+    stripe) coordinates; ``Y = segment_sum(tiles @ X[stripe], block)``."""
+
+    tiles: object  # (T,128,128) f32
+    tile_blk: object  # (T,) i32 block row of each tile
+    tile_stp: object  # (T,) i32 column stripe of each tile
+    nrows: int
+    ncols: int
+    precision: str
+
+    def __call__(self, x):
+        X = x.reshape(x.shape[0], -1)
+        R = X.shape[1]
+        nb = cdiv(max(self.nrows, 1), LANES)
+        ns = cdiv(max(self.ncols, 1), LANES)
+        Xp = jnp.pad(X[: self.ncols], ((0, ns * LANES - self.ncols), (0, 0)))
+        Xg = Xp.reshape(ns, LANES, R)[self.tile_stp]  # (T,128,R)
+        P = jax.lax.dot_general(
+            self.tiles, Xg, (((2,), (1,)), ((0,), (0,))),
+            preferred_element_type=jnp.float32,
+            precision=(jax.lax.Precision.HIGHEST
+                       if self.precision == "highest"
+                       else jax.lax.Precision.DEFAULT),
+        )  # (T,128,R)
+        Y = jax.ops.segment_sum(P, self.tile_blk, num_segments=nb)
+        Y = Y.reshape(nb * LANES, R)[: self.nrows]
+        return Y.reshape((self.nrows,) + x.shape[1:])
+
+
+jax.tree_util.register_dataclass(
+    Blocks, data_fields=["tiles", "tile_blk", "tile_stp"],
+    meta_fields=["nrows", "ncols", "precision"])
 
 
 @dataclass
-class BSRMatrix:
+class BSRMatrix(DeviceOperator):
     nrows: int
     ncols: int
     nnz: int
     fill: float  # dense tile slots per nonzero
-    precision: str  # "highest" (f32-grade) or "default" (bf16 operands)
-    tiles: object = field(repr=False)  # jnp (T,128,128) f32
-    tile_blk: object = field(repr=False)  # jnp (T,) i32
-    tile_stp: object = field(repr=False)  # jnp (T,) i32
+    dev: Blocks = field(repr=False)
 
     @classmethod
     def from_coo(
@@ -67,6 +85,9 @@ class BSRMatrix:
         max_fill: float = 64.0,
         precision: str = "highest",
     ) -> "BSRMatrix":
+        """``precision``: "highest" keeps full fp32 products; "default"
+        is the matrix units' fast mode, which on the GPU rounds the
+        operands to TF32 (~3 decimal digits)."""
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         vals = np.asarray(vals)
@@ -88,39 +109,34 @@ class BSRMatrix:
                       vals)
         tile_blk = (upair // ns).astype(np.int32) if nnz else np.zeros(1, np.int32)
         tile_stp = (upair % ns).astype(np.int32) if nnz else np.zeros(1, np.int32)
-        return cls(
-            nrows=nrows, ncols=ncols, nnz=nnz, fill=fill, precision=precision,
-            tiles=jnp.asarray(tiles), tile_blk=jnp.asarray(tile_blk),
-            tile_stp=jnp.asarray(tile_stp),
-        )
+        return cls(nrows=nrows, ncols=ncols, nnz=nnz, fill=fill,
+                   dev=Blocks(tiles=jnp.asarray(tiles),
+                              tile_blk=jnp.asarray(tile_blk),
+                              tile_stp=jnp.asarray(tile_stp),
+                              nrows=nrows, ncols=ncols, precision=precision))
+
+    @property
+    def precision(self) -> str:
+        return self.dev.precision
+
+    @property
+    def tiles(self):
+        return self.dev.tiles
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``(rows, cols, vals)`` reconstructed from the dense tiles.
         Lossy by the format's nature: explicitly-stored zeros vanish
         (a zero tile slot is padding) and duplicate inputs arrive summed
         — the triplets reproduce the *operator*, not the input list."""
-        tiles = np.asarray(self.tiles)
+        tiles = np.asarray(self.dev.tiles)
         t, rr, cc = np.nonzero(tiles)
         if self.nnz == 0:
             z = np.zeros(0, np.int64)
             return z, z.copy(), np.zeros(0)
-        blk = np.asarray(self.tile_blk, np.int64)[t]
-        stp = np.asarray(self.tile_stp, np.int64)[t]
+        blk = np.asarray(self.dev.tile_blk, np.int64)[t]
+        stp = np.asarray(self.dev.tile_stp, np.int64)[t]
         return (blk * LANES + rr, stp * LANES + cc,
                 tiles[t, rr, cc].astype(np.float64))
 
-    def matmat(self, X):
-        """Y = A @ X for X of shape (ncols, R)."""
-        X = jnp.asarray(X, jnp.float32)
-        if X.ndim != 2 or X.shape[0] != self.ncols:
-            raise ValueError(f"X must be ({self.ncols}, R), got {X.shape}")
-        return _bsr_matmat(
-            self.tiles, self.tile_blk, self.tile_stp, X,
-            nb=cdiv(max(self.nrows, 1), LANES), ns=cdiv(max(self.ncols, 1), LANES),
-            nrows=self.nrows, precision=self.precision,
-        )
-
-    def matvec(self, x):
-        return self.matmat(jnp.asarray(x, jnp.float32).reshape(-1, 1))[:, 0]
-
-    __matmul__ = matmat
+    def __matmul__(self, X):
+        return self.matmat(X)

@@ -6,12 +6,11 @@ order; per-strip nnz ranges in ``strip_ptr`` and a per-nnz 3-bit
 ``row_in_strip`` id.  The reference kernel accumulates into uninitialized
 local memory (``Cmrs.cl:18``) and writes out of bounds when
 ``rows % height != 0`` (``Cmrs.cl:38-41`` vs ``cmrs.c:152``) — both fixed
-here by construction (explicit zero padding; y padded to whole blocks).
+here by construction.
 
-TPU-native: strips never straddle a 128-row block (128 % height == 0), so
-the block-local row id ``(strip % strips_per_block)·height + ris`` defines
-the segments of engine 2's stripe-pure segmented reduction; the per-row
-segment bounds ride as uint8 streams, preserving CMRS's low index traffic.
+On the device the global row ``strip·height + row_in_strip`` of each
+nonzero is materialized once into row pointers, and the product is the
+row-block kernel (``spmv_tpu.device.Csr``), the same as CSR.
 """
 
 from __future__ import annotations
@@ -20,9 +19,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import DEFAULT_CHUNK, LANES, build_seg_plan, cdiv
-from spmv_tpu.kernels.engines import segmented_spmv
+from spmv_tpu.device import Csr, DeviceOperator, csr
+from spmv_tpu.formats.base import cdiv
 
 __all__ = ["CMRSMatrix", "DEFAULT_HEIGHT"]
 
@@ -30,7 +28,7 @@ DEFAULT_HEIGHT = 8  # cmrs.c:46
 
 
 @dataclass
-class CMRSMatrix:
+class CMRSMatrix(DeviceOperator):
     nrows: int
     ncols: int
     height: int
@@ -38,79 +36,46 @@ class CMRSMatrix:
     row_in_strip: np.ndarray  # (nnz,) int8 — row id within strip
     cols: np.ndarray  # (nnz,) int32, CSR order
     vals: np.ndarray  # (nnz,)
-    dev: DevSeg = field(repr=False)
-    plan: object = field(repr=False, default=None)  # SegPlan (host arrays)
+    dev: Csr = field(repr=False)
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        height: int = DEFAULT_HEIGHT,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        pool: bool | None = None,
-        bank: bool | None = None,
-    ) -> "CMRSMatrix":
-        if LANES % height:
-            raise ValueError(f"height must divide {LANES}")
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray, *,
+                 height: int = DEFAULT_HEIGHT) -> "CMRSMatrix":
+        if not 0 < height <= 128:
+            raise ValueError("height must be in 1..128 (int8 row ids)")
         rows = np.asarray(rows, dtype=np.int64)
         order = np.lexsort((np.asarray(cols), rows))
         rows_s = rows[order]
-        cols_s = np.asarray(cols)[order]
-        vals_s = np.asarray(vals)[order]
-
         nstrips = cdiv(max(nrows, 1), height)
-        strip = rows_s // height
         strip_ptr = np.zeros(nstrips + 1, dtype=np.int64)
-        np.add.at(strip_ptr, strip + 1, 1)
-        np.cumsum(strip_ptr, out=strip_ptr)
-        ris = (rows_s % height).astype(np.int8)
-        return cls.from_cmrs(
-            nrows, ncols, strip_ptr, ris, cols_s, vals_s,
-            height=height, chunk=chunk, pack=pack, pool=pool, bank=bank,
-        )
+        np.cumsum(np.bincount(rows_s // height, minlength=nstrips),
+                  out=strip_ptr[1:])
+        return cls.from_cmrs(nrows, ncols, strip_ptr,
+                             (rows_s % height).astype(np.int8),
+                             np.asarray(cols)[order], np.asarray(vals)[order],
+                             height=height)
 
     @classmethod
-    def from_cmrs(
-        cls,
-        nrows: int,
-        ncols: int,
-        strip_ptr: np.ndarray,
-        row_in_strip: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        height: int = DEFAULT_HEIGHT,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        pool: bool | None = None,
-        bank: bool | None = None,
-    ) -> "CMRSMatrix":
+    def from_cmrs(cls, nrows: int, ncols: int, strip_ptr: np.ndarray,
+                  row_in_strip: np.ndarray, cols: np.ndarray,
+                  vals: np.ndarray, *,
+                  height: int = DEFAULT_HEIGHT) -> "CMRSMatrix":
         """Build from the format's own arrays (the honest CMRS ingest path:
         reconstructs global rows = strip·height + ris and re-sorts within
-        strips so the device tiles see monotone local ids)."""
+        strips so the device rows are sorted)."""
         strip_ptr = np.asarray(strip_ptr, dtype=np.int64)
         ris = np.asarray(row_in_strip, dtype=np.int64)
-        nnz = ris.size
-        nstrips = strip_ptr.size - 1
-        strip_of = np.repeat(np.arange(nstrips, dtype=np.int64), np.diff(strip_ptr))
+        strip_of = np.repeat(np.arange(strip_ptr.size - 1, dtype=np.int64),
+                             np.diff(strip_ptr))
         rows = strip_of * height + ris
-        order = np.lexsort((np.asarray(cols), rows))  # CSR order within strips
-        plan = build_seg_plan(
-            rows[order], np.asarray(cols)[order], np.asarray(vals)[order],
-            nrows, ncols, chunk=chunk, pack=pack, pool=pool, bank=bank,
-        )
+        order = np.lexsort((np.asarray(cols), rows))  # CSR order in strips
         return cls(
-            nrows=nrows, ncols=ncols, height=height,
-            strip_ptr=strip_ptr, row_in_strip=np.asarray(row_in_strip, dtype=np.int8),
+            nrows=nrows, ncols=ncols, height=height, strip_ptr=strip_ptr,
+            row_in_strip=np.asarray(row_in_strip, dtype=np.int8),
             cols=np.asarray(cols, dtype=np.int32), vals=np.asarray(vals),
-            dev=DevSeg.from_plan(plan), plan=plan,
-        )
+            dev=csr(rows[order], np.asarray(cols)[order],
+                    np.asarray(vals)[order], nrows))
 
     @property
     def nnz(self) -> int:
@@ -128,12 +93,3 @@ class CMRSMatrix:
         rows = strip_of * self.height + self.row_in_strip.astype(np.int64)
         return (rows, np.array(self.cols, np.int64, copy=True),
                 np.array(self.vals, copy=True))
-
-    def padded_matvec(self, x2d):
-        return segmented_spmv(self.dev, x2d)
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

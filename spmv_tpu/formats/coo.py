@@ -2,10 +2,9 @@
 
 Reference: ``/root/reference/coo.c`` + ``kernels/Coo.cl``.  The reference
 kernel scatter-adds one lane per nonzero with a hand-rolled CAS
-double-precision ``atomic_add`` (``Coo.cl:4-22``) — non-deterministic
-summation order and the anti-pattern on TPU (no atomics).  The TPU-native
-equivalent is **stable sort by row + tiled segmented reduction** (engine 2),
-which is deterministic by construction.
+double-precision ``atomic_add`` (``Coo.cl:4-22``).  The device product
+here is the same scatter: an unsorted ``segment_sum`` over the triplets in
+file order, which XLA lowers to atomic adds on the GPU.
 
 Duplicate (row, col) entries sum, matching raw MatrixMarket semantics and
 the reference's accumulate behavior (``helper_functions.h:218``).
@@ -17,57 +16,30 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import DEFAULT_CHUNK, build_seg_plan
-from spmv_tpu.kernels.engines import segmented_spmv
+from spmv_tpu.device import DeviceOperator, Seg, seg
 
 __all__ = ["COOMatrix"]
 
 
 @dataclass
-class COOMatrix:
-    """Host container: raw (possibly unsorted) triplets + device plan."""
+class COOMatrix(DeviceOperator):
+    """Host container: raw (possibly unsorted) triplets + device arrays."""
 
     nrows: int
     ncols: int
     rows: np.ndarray  # original order, 0-based
     cols: np.ndarray
     vals: np.ndarray
-    dev: DevSeg = field(repr=False)
-    plan: object = field(repr=False, default=None)  # SegPlan (host arrays)
+    dev: Seg = field(repr=False)
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        pool: bool | None = None,
-        bank: bool | None = None,
-    ) -> "COOMatrix":
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray) -> "COOMatrix":
         rows = np.asarray(rows)
         cols = np.asarray(cols)
         vals = np.asarray(vals)
-        # Deterministic: stable sort by (row, col).
-        order = np.lexsort((cols, rows))
-        plan = build_seg_plan(
-            rows[order], cols[order], vals[order], nrows, ncols, chunk=chunk,
-            pack=pack, pool=pool, bank=bank,
-        )
-        return cls(
-            nrows=nrows,
-            ncols=ncols,
-            rows=rows,
-            cols=cols,
-            vals=vals,
-            dev=DevSeg.from_plan(plan),
-            plan=plan,
-        )
+        return cls(nrows=nrows, ncols=ncols, rows=rows, cols=cols, vals=vals,
+                   dev=seg(rows, cols, vals, nrows))
 
     @property
     def nnz(self) -> int:
@@ -75,21 +47,9 @@ class COOMatrix:
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``(rows, cols, vals)`` triplets in the original input order
-        (duplicates preserved — the device plan sums them, so the triplets
-        and the operator agree).  Always fresh copies: ``np.asarray`` would
-        alias the container's internal arrays when the dtype already
-        matches, and a caller mutating them would silently desync the host
-        triplets from the device plan."""
+        (duplicates preserved — the device product sums them, so the
+        triplets and the operator agree).  Always fresh copies: a caller
+        mutating them cannot desync the host triplets from the device."""
         return (np.array(self.rows, np.int64, copy=True),
                 np.array(self.cols, np.int64, copy=True),
                 np.array(self.vals, copy=True))
-
-    # jit-composable padded form -------------------------------------------------
-    def padded_matvec(self, x2d):
-        return segmented_spmv(self.dev, x2d)
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

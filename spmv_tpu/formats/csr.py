@@ -1,9 +1,9 @@
 """CSR — compressed sparse row.
 
 Reference: ``/root/reference/csr.c`` + ``kernels/Csr.cl`` (scalar CSR: one
-lane per row with a sequential inner loop, ``Csr.cl:5-16``).  Row-per-lane
-is meaningless on TPU; the device execution is engine 2's nnz-tiled
-segmented reduction, driven from the canonical (ptr, cols, vals) arrays.
+lane per row with a sequential inner loop, ``Csr.cl:5-16``).  On the
+device the arrays stay CSR and the product is the row-block kernel of
+``spmv_tpu.csr_kernel`` (``spmv_tpu.device.Csr``).
 
 The reference's streaming ptr construction assumes rows appear contiguously
 ascending with no empty rows (``csr.c:72-91``, SURVEY.md §2.2) — here ptr is
@@ -17,70 +17,39 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import DEFAULT_CHUNK, build_seg_plan
-from spmv_tpu.kernels.engines import segmented_spmv
+from spmv_tpu.device import Csr, DeviceOperator, csr
 
 __all__ = ["CSRMatrix"]
 
 
 @dataclass
-class CSRMatrix:
+class CSRMatrix(DeviceOperator):
     nrows: int
     ncols: int
     ptr: np.ndarray  # (nrows+1,) int64
     cols: np.ndarray  # (nnz,) int32, row-major
     vals: np.ndarray  # (nnz,)
-    dev: DevSeg = field(repr=False)
-    plan: object = field(repr=False, default=None)  # SegPlan (host arrays)
+    dev: Csr = field(repr=False)
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        pool: bool | None = None,
-        bank: bool | None = None,
-    ) -> "CSRMatrix":
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray) -> "CSRMatrix":
         rows = np.asarray(rows, dtype=np.int64)
         order = np.lexsort((cols, rows))
         rows_s, cols_s, vals_s = rows[order], np.asarray(cols)[order], np.asarray(vals)[order]
         ptr = np.zeros(nrows + 1, dtype=np.int64)
-        np.add.at(ptr, rows_s + 1, 1)
-        np.cumsum(ptr, out=ptr)
-        return cls.from_csr(nrows, ncols, ptr, cols_s, vals_s, chunk=chunk,
-                            pack=pack, pool=pool, bank=bank)
+        np.cumsum(np.bincount(rows_s, minlength=nrows), out=ptr[1:])
+        return cls.from_csr(nrows, ncols, ptr, cols_s, vals_s)
 
     @classmethod
-    def from_csr(
-        cls,
-        nrows: int,
-        ncols: int,
-        ptr: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        pool: bool | None = None,
-        bank: bool | None = None,
-    ) -> "CSRMatrix":
+    def from_csr(cls, nrows: int, ncols: int, ptr: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray) -> "CSRMatrix":
         ptr = np.asarray(ptr, dtype=np.int64)
-        lengths = np.diff(ptr)
-        rows = np.repeat(np.arange(nrows, dtype=np.int64), lengths)
-        plan = build_seg_plan(rows, cols, vals, nrows, ncols, chunk=chunk,
-                              pack=pack, pool=pool, bank=bank)
-        return cls(
-            nrows=nrows, ncols=ncols, ptr=ptr,
-            cols=np.asarray(cols, dtype=np.int32), vals=np.asarray(vals),
-            dev=DevSeg.from_plan(plan), plan=plan,
-        )
+        rows = np.repeat(np.arange(nrows, dtype=np.int64), np.diff(ptr))
+        return cls(nrows=nrows, ncols=ncols, ptr=ptr,
+                   cols=np.asarray(cols, dtype=np.int32),
+                   vals=np.asarray(vals),
+                   dev=csr(rows, cols, vals, nrows))
 
     @property
     def nnz(self) -> int:
@@ -88,17 +57,8 @@ class CSRMatrix:
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``(rows, cols, vals)`` triplets in CSR (row-major) order.
-        Fresh copies — mutating them cannot desync the device plan."""
+        Fresh copies — mutating them cannot desync the device arrays."""
         rows = np.repeat(np.arange(self.nrows, dtype=np.int64),
                          np.diff(self.ptr))
         return (rows, np.array(self.cols, np.int64, copy=True),
                 np.array(self.vals, copy=True))
-
-    def padded_matvec(self, x2d):
-        return segmented_spmv(self.dev, x2d)
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

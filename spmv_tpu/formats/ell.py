@@ -2,10 +2,11 @@
 
 Reference: ``/root/reference/ell.c`` + ``kernels/Ell.cl`` (two-pass file
 conversion to row-major (rows, K) arrays, one 16-lane workgroup per row with
-a shared-memory tree reduction).  TPU-native: the padded layout is engine
-1's stripe-pure mini-panels in natural row order (SELL-C-σ is the same
-layout after a σ-sort) and the reduction is a dense ``sum(axis=0)``; no
-shared memory, no barriers.
+a shared-memory tree reduction).  On the device the (rows, K) column and
+value arrays are the format itself (``spmv_tpu.device.Panel``) and the
+product is one gather-multiply-reduce over them.  ELL pads every row to
+the longest: on a power-law matrix one hub row sets K for all, and
+``padded_bytes`` shows that blow-up.
 
 Reference bugs fixed by construction (SURVEY.md §2.2):
 * padded value slots were uninitialized memory (``ell.c:147-151``) — here
@@ -14,15 +15,6 @@ Reference bugs fixed by construction (SURVEY.md §2.2):
   K comes from a bincount over all rows.
 
 Also reproduces the reference's row-length stats output (``ell.c:103-104``).
-
-Round 4: the *device lowering* routes through the byte-priced panel/spill
-split (``formats.split``, the machinery HYB pioneered) — on panel-hostile
-matrices (randomized fill, power-law) the tail of each (block, stripe)
-mini-panel spills into the dense segmented stream instead of padding, so
-ELL's streamed bytes can never exceed the panel/segmented break-even.
-The format semantics (classical (rows, K) arrays, K, stats, ``from_ell``)
-are unchanged; pass ``split=False`` for the pure-panel execution (the
-dist layer does — shards keep one engine pass per collective).
 """
 
 from __future__ import annotations
@@ -31,28 +23,19 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevPanel, DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import DEFAULT_CHUNK, build_panel_plan, build_seg_plan
-from spmv_tpu.formats.split import priced_split
-from spmv_tpu.kernels.engines import panel_spmv, segmented_spmv
+from spmv_tpu.device import DeviceOperator, Panel, panel
 
 __all__ = ["EllMatrix"]
 
 
 @dataclass
-class EllMatrix:
+class EllMatrix(DeviceOperator):
     nrows: int
     ncols: int
     nnz: int
     K: int  # max row length (the ELL width)
     row_length_stats: dict  # average / shortest / longest (ell.c:103-104)
-    dev: DevPanel = field(repr=False)
-    plan: object = field(repr=False, default=None)  # PanelPlan (host arrays)
-    # byte-priced spill part (None = pure panel; formats.split)
-    dev_spill: DevSeg | None = field(repr=False, default=None)
-    spill_plan: object = field(repr=False, default=None)  # SegPlan
-    panel_nnz: int = 0
-    spill_nnz: int = 0
+    dev: Panel = field(repr=False)
     # triplets in (row, col) order, kept to materialize the classical
     # row-major (rows, K) format arrays on demand (ell.c:121-158 parity)
     _rows: np.ndarray = field(repr=False, default=None)
@@ -60,18 +43,8 @@ class EllMatrix:
     _vals: np.ndarray = field(repr=False, default=None)
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        split: bool = True,
-    ) -> "EllMatrix":
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray) -> "EllMatrix":
         rows = np.asarray(rows, dtype=np.int64)
         order = np.lexsort((cols, rows))
         rows_s, cols_s, vals_s = rows[order], np.asarray(cols)[order], np.asarray(vals)[order]
@@ -82,40 +55,14 @@ class EllMatrix:
             "shortest": int(lengths.min()) if nrows else 0,
             "longest": K,
         }
-        dev_spill = spill_plan = None
-        keep_nnz, spill_nnz = rows.size, 0
-        if split and rows.size:
-            r, c, v, keep, _shape = priced_split(rows_s, cols_s, vals_s,
-                                                 nrows, ncols)
-            plan = build_panel_plan(r[keep], c[keep], v[keep], nrows, ncols,
-                                    chunk=chunk, pack=pack)
-            if (~keep).any():
-                spill_plan = build_seg_plan(r[~keep], c[~keep], v[~keep],
-                                            nrows, ncols, chunk=chunk,
-                                            bank=None)
-                dev_spill = DevSeg.from_plan(spill_plan)
-            keep_nnz, spill_nnz = int(keep.sum()), int((~keep).sum())
-        else:
-            plan = build_panel_plan(rows_s, cols_s, vals_s, nrows, ncols,
-                                    chunk=chunk, pack=pack)
-        return cls(
-            nrows=nrows, ncols=ncols, nnz=rows.size, K=K,
-            row_length_stats=stats, dev=DevPanel.from_plan(plan), plan=plan,
-            dev_spill=dev_spill, spill_plan=spill_plan,
-            panel_nnz=keep_nnz, spill_nnz=spill_nnz,
-            _rows=rows_s, _cols=cols_s.astype(np.int32),
-            _vals=vals_s,
-        )
+        return cls(nrows=nrows, ncols=ncols, nnz=rows.size, K=K,
+                   row_length_stats=stats,
+                   dev=panel(rows_s, cols_s, vals_s, nrows, K),
+                   _rows=rows_s, _cols=cols_s.astype(np.int32), _vals=vals_s)
 
     @classmethod
-    def from_ell(
-        cls,
-        nrows: int,
-        ncols: int,
-        data: np.ndarray,
-        cols: np.ndarray,
-        **kwargs,
-    ) -> "EllMatrix":
+    def from_ell(cls, nrows: int, ncols: int, data: np.ndarray,
+                 cols: np.ndarray) -> "EllMatrix":
         """Ingest the classical row-major padded arrays ``data/cols`` of
         shape (nrows, K) — the format ``ell.c:121-158`` builds.  Pad slots
         are value 0 (explicitly stored zeros are treated as padding, the
@@ -128,14 +75,11 @@ class EllMatrix:
                              f"{data.shape} / {cols.shape}")
         mask = data != 0
         r, _ = np.nonzero(mask)
-        return cls.from_coo(nrows, ncols, r, cols[mask], data[mask], **kwargs)
+        return cls.from_coo(nrows, ncols, r, cols[mask], data[mask])
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``(rows, cols, vals)`` triplets in (row, col) order — fresh
         copies, part of every format's shared accessor surface."""
-        if self._rows is None:
-            z = np.zeros(0, np.int64)
-            return z, z.copy(), np.zeros(0)
         return (np.array(self._rows, np.int64, copy=True),
                 np.array(self._cols, np.int64, copy=True),
                 np.array(self._vals, copy=True))
@@ -146,11 +90,9 @@ class EllMatrix:
         at ``ell.c:147-151``)."""
         data = np.zeros((self.nrows, max(self.K, 1)), dtype=np.float64)
         colsa = np.zeros((self.nrows, max(self.K, 1)), dtype=np.int32)
-        if self._rows is not None and self._rows.size:
-            starts = np.zeros(self._rows.max() + 2, dtype=np.int64)
-            np.add.at(starts, self._rows + 1, 1)
-            np.cumsum(starts, out=starts)
-            k = np.arange(self._rows.size, dtype=np.int64) - starts[self._rows]
+        if self._rows.size:
+            k = np.arange(self._rows.size) - np.searchsorted(self._rows,
+                                                              self._rows)
             data[self._rows, k] = self._vals
             colsa[self._rows, k] = self._cols
         return data, colsa
@@ -160,31 +102,6 @@ class EllMatrix:
         """Independent host recompute from the classical format arrays —
         the ``compute_using_cpu`` redundancy check (``ell.c:357-383``):
         a conversion bug that kept the triplet set but mislaid the format
-        arrays would fail this, not just the kernel-vs-oracle check."""
+        arrays would fail this, not just the device-vs-oracle check."""
         x = np.asarray(x, dtype=np.float64)
         return (np.asarray(data, np.float64) * x[cols]).sum(axis=1)
-
-    def padded_matvec(self, x2d):
-        if self.dev_spill is None:
-            return panel_spmv(self.dev, x2d)
-        if self.panel_nnz == 0:
-            # pure-spill shape: don't pay a dispatch for an empty panel
-            return segmented_spmv(self.dev_spill, x2d)
-        yp = panel_spmv(self.dev, x2d)
-        ys = segmented_spmv(self.dev_spill, x2d)
-        # the two engines' padded y row counts may differ (independent
-        # window heights); rows past the true blocks are zero either way
-        import jax.numpy as jnp
-
-        n = max(yp.shape[0], ys.shape[0])
-        if yp.shape[0] < n:
-            yp = jnp.pad(yp, ((0, n - yp.shape[0]), (0, 0)))
-        if ys.shape[0] < n:
-            ys = jnp.pad(ys, ((0, n - ys.shape[0]), (0, 0)))
-        return yp + ys
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

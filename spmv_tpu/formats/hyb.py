@@ -1,19 +1,17 @@
-"""HYB — hybrid ELL + spill format (framework extension, beyond the
+"""HYB — hybrid ELL + COO spill (framework extension, beyond the
 reference's five formats).
 
-The classic hybrid of ELLPACK-style dense padding with a coordinate
-overflow list (cuSPARSE's HYB).  TPU-native version: per (128-row block,
-128-col stripe) the mini-panel width is capped at the byte-cost-optimal
-point and the overflow elements spill into engine 2's segmented stream;
-the builder prices all three shapes (pure panel / hybrid / pure spill)
-and keeps the cheapest — the cap model, pricing and rationale live in
-``formats.split`` (round 4: the same lowering now also backs ELL and
-SELL-C-σ by default; HYB remains the format whose *semantics* are the
-split).
+The classic hybrid of Bell & Garland (SC'09) that cuSPARSE shipped as
+HYB: the first ``K`` nonzeros of every row live in a padded ``(nrows, K)``
+ELL panel, the rest spill into a row-sorted coordinate list.  ``K`` is
+their host-side rule: the largest width that at least
+``max(4096, nrows / 3)`` rows fill completely, so the panel pads little
+and the long tails of a power-law matrix go to the spill.  A matrix with
+fewer rows than that floor is all spill.
 
-``matvec`` runs the chosen engines and adds the padded partial results —
-both produce row-padded (out_rows, 128) y tables, so the combination is
-one fused XLA add.
+On the device the product is ``Panel(x) + Csr(x)``
+(``spmv_tpu.device.SumOf``): one gather-multiply-reduce over the panel
+plus the row-block kernel over the spill.
 """
 
 from __future__ import annotations
@@ -22,110 +20,58 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevPanel, DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import DEFAULT_CHUNK, build_panel_plan, build_seg_plan
-from spmv_tpu.formats.split import priced_split
-from spmv_tpu.kernels.engines import panel_spmv, segmented_spmv
+from spmv_tpu.device import DeviceOperator, SumOf, csr, panel, row_ranks
 
-__all__ = ["HybMatrix"]
+__all__ = ["HybMatrix", "hyb_width"]
+
+ROWS_FLOOR = 4096  # Bell & Garland's minimum count of full panel rows
+
+
+def hyb_width(lengths: np.ndarray) -> int:
+    """Largest K with at least ``max(4096, nrows/3)`` rows of length ≥ K
+    (0 when no width qualifies)."""
+    lengths = np.asarray(lengths, np.int64)
+    need = max(ROWS_FLOOR, lengths.size / 3)
+    if lengths.size < need:
+        return 0
+    # rows_at_least[k] = number of rows with length >= k
+    rows_at_least = np.cumsum(np.bincount(lengths)[::-1])[::-1]
+    return int(np.flatnonzero(rows_at_least >= need).max())
 
 
 @dataclass
-class HybMatrix:
+class HybMatrix(DeviceOperator):
     nrows: int
     ncols: int
     nnz: int
-    panel_nnz: int  # elements kept in the dense panels
-    spill_nnz: int  # elements in the segmented overflow stream
-    dev: DevPanel = field(repr=False)  # panel part (may be empty)
-    dev_spill: DevSeg | None = field(repr=False, default=None)
-    plan: object = field(repr=False, default=None)  # PanelPlan
-    spill_plan: object = field(repr=False, default=None)  # SegPlan
-    # triplets in (block, stripe, row, col) order — the shared to_coo
-    # accessor surface (the split mask alone cannot reconstruct them)
+    K: int  # ELL panel width
+    panel_nnz: int  # elements kept in the panel
+    spill_nnz: int  # elements in the coordinate spill
+    dev: SumOf = field(repr=False)
+    # triplets in (row, col) order — the shared to_coo accessor surface
     _rows: np.ndarray = field(repr=False, default=None)
     _cols: np.ndarray = field(repr=False, default=None)
     _vals: np.ndarray = field(repr=False, default=None)
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        panel_pack: int | None = None,
-        bank: bool | None = None,
-    ) -> "HybMatrix":
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray) -> "HybMatrix":
         rows = np.asarray(rows, dtype=np.int64)
-        cols = np.asarray(cols, dtype=np.int64)
-        vals = np.asarray(vals)
-        nnz = rows.size
-        if nnz == 0:
-            plan = build_panel_plan(rows, cols, vals, nrows, ncols, chunk=chunk,
-                                    pack=panel_pack)
-            return cls(nrows=nrows, ncols=ncols, nnz=0, panel_nnz=0,
-                       spill_nnz=0, dev=DevPanel.from_plan(plan), plan=plan)
-
-        r, c, v, keep, _shape = priced_split(rows, cols, vals, nrows,
-                                               ncols)
-
-        plan = build_panel_plan(r[keep], c[keep], v[keep], nrows, ncols,
-                                chunk=chunk, pack=panel_pack)
-        dev_spill = None
-        spill_plan = None
-        if (~keep).any():
-            # bank=None: the spill sub-matrix auto-prices the two-bank
-            # layout (formats.bank) — on scattered matrices the spill IS
-            # the matrix and the banked stream wins the modeled time
-            spill_plan = build_seg_plan(r[~keep], c[~keep], v[~keep],
-                                        nrows, ncols, chunk=chunk, pack=pack,
-                                        bank=bank)
-            dev_spill = DevSeg.from_plan(spill_plan)
-        return cls(
-            nrows=nrows, ncols=ncols, nnz=nnz,
-            panel_nnz=int(keep.sum()), spill_nnz=int((~keep).sum()),
-            dev=DevPanel.from_plan(plan), dev_spill=dev_spill,
-            plan=plan, spill_plan=spill_plan,
-            _rows=r, _cols=c.astype(np.int32), _vals=v,
-        )
+        order = np.lexsort((np.asarray(cols), rows))
+        r, c, v = rows[order], np.asarray(cols)[order], np.asarray(vals)[order]
+        K = hyb_width(np.bincount(r, minlength=nrows))
+        k = row_ranks(r, nrows)
+        keep = k < K
+        dev = SumOf(parts=(
+            panel(r[keep], c[keep], v[keep], nrows, K, ranks=k[keep]),
+            csr(r[~keep], c[~keep], v[~keep], nrows)))
+        return cls(nrows=nrows, ncols=ncols, nnz=r.size, K=K,
+                   panel_nnz=int(keep.sum()), spill_nnz=int((~keep).sum()),
+                   dev=dev, _rows=r, _cols=c.astype(np.int32), _vals=v)
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """``(rows, cols, vals)`` triplets in (block, stripe, row, col)
-        order — fresh copies, part of every format's shared accessor
-        surface (panel and spill elements interleave back together)."""
-        if self._rows is None:
-            z = np.zeros(0, np.int64)
-            return z, z.copy(), np.zeros(0)
+        """``(rows, cols, vals)`` triplets in (row, col) order — fresh
+        copies, part of every format's shared accessor surface."""
         return (np.array(self._rows, np.int64, copy=True),
                 np.array(self._cols, np.int64, copy=True),
                 np.array(self._vals, copy=True))
-
-    def padded_matvec(self, x2d):
-        if self.dev_spill is None:
-            return panel_spmv(self.dev, x2d)
-        if self.panel_nnz == 0:
-            # pure-spill shape: don't pay a dispatch for an empty panel
-            return segmented_spmv(self.dev_spill, x2d)
-        yp = panel_spmv(self.dev, x2d)
-        ys = segmented_spmv(self.dev_spill, x2d)
-        # the two engines' padded y row counts may differ (independent
-        # window heights); rows past the true blocks are zero either way
-        import jax.numpy as jnp
-
-        n = max(yp.shape[0], ys.shape[0])
-        if yp.shape[0] < n:
-            yp = jnp.pad(yp, ((0, n - yp.shape[0]), (0, 0)))
-        if ys.shape[0] < n:
-            ys = jnp.pad(ys, ((0, n - ys.shape[0]), (0, 0)))
-        return yp + ys
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

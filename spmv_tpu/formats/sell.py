@@ -5,18 +5,17 @@ reference implements only the C-slicing half (C=32, one wavefront per
 slice, ``sigma_c.c:48``) and delegates the σ-sort to an offline pre-sorted
 *file* (``cant-sorted.mtx``), never unpermuting the output.
 
-TPU-native version:
-* **C = 128** — the lane count, the TPU analog of the reference's
-  C = wavefront size; each slice is one y block.
-* **σ is real**: rows are sorted by descending length *within σ-row
-  windows* (default σ = 1024) at conversion, and the inverse permutation is
-  applied to y by a fused gather epilogue kernel (σ ≤ 1024 keeps every
-  output block's sources inside one 8-row window of the y' table — the
-  depth limit of the TPU sublane gather; see docs/DESIGN.md).
-* per-slice padded widths K_b drive engine 1's flat panel stream — the
-  column-major-within-slice packing of ``sigma_c.c:156-202`` becomes panel
-  packing, with calloc-style explicit zero padding (the one driver whose
-  padding the reference got right, ``sigma_c.c:153-154``).
+Here:
+* **C = 32**, the reference's slice height;
+* **σ is real**: rows are sorted by descending length within σ-row
+  windows at conversion, and the output is unpermuted on the device by
+  one gather;
+* each slice is padded to its own width K_s (``slice_widths``, with
+  calloc-style explicit zeros, ``sigma_c.c:153-154``).  On the device,
+  slices whose widths round to the same bucket (within 25 %, exact up to
+  8) share one padded ``(rows, K)`` slab, so a matrix costs a handful of
+  gather-multiply-reduce fusions instead of one per slice
+  (``spmv_tpu.device.Permuted``).
 """
 
 from __future__ import annotations
@@ -25,108 +24,48 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevPanel, DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import (DEFAULT_CHUNK, LANES, build_panel_plan,
-                                   build_seg_plan, cdiv)
-from spmv_tpu.formats.split import priced_split
-from spmv_tpu.kernels.engines import (inverse_permute_blocks, panel_spmv,
-                                      segmented_spmv)
+from spmv_tpu.device import DeviceOperator, Permuted, panel, row_ranks
+from spmv_tpu.formats.base import cdiv
 
-__all__ = ["SellMatrix", "DEFAULT_SIGMA", "sigma_sort_tables"]
+__all__ = ["SellMatrix", "DEFAULT_SIGMA", "C", "bucket_width"]
 
-DEFAULT_SIGMA = 1024  # rows per sorting window; ≤ 1024 (8×128 gather window)
+C = 32  # slice height, sigma_c.c:48
+DEFAULT_SIGMA = 1024  # rows per sorting window
 
 
-def _panel_slots(rows, cols, nrows: int, ncols: int) -> int:
-    """Padded slot count of the striped panel layout for a row labelling:
-    Σ over (128-row block, 128-col stripe) of 128 · max-per-row count."""
-    if rows.size == 0:
-        return 0
-    nstripes = cdiv(max(ncols, 1), LANES)
-    rows = np.asarray(rows, np.int64)
-    cols = np.asarray(cols, np.int64)
-    # count per (block, stripe, row) then max over rows per (block, stripe)
-    grp = (rows >> 7) * nstripes * LANES + (cols >> 7) * LANES + (rows & (LANES - 1))
-    u, counts = np.unique(grp, return_counts=True)
-    bs, inv = np.unique(u // LANES, return_inverse=True)
-    widths = np.zeros(bs.size, dtype=np.int64)
-    np.maximum.at(widths, inv, counts)
-    return int(widths.sum()) * LANES
+def bucket_width(k):
+    """Device slab width of a slice of width ``k``: exact up to 8, then
+    rounded up to a quarter of k's octave (at most 25 % padding)."""
+    k = np.asarray(k, np.int64)
+    step = np.left_shift(1, np.maximum(
+        np.ceil(np.log2(np.maximum(k, 1))).astype(np.int64) - 3, 0))
+    return np.where(k <= 8, k, -(-k // step) * step)
 
 
-def sigma_sort_tables(rows, cols, nrows: int, ncols: int,
-                      sigma: int = DEFAULT_SIGMA, *,
-                      force_identity: bool = False):
-    """The σ-sort decision + epilogue tables for a row space.
-
-    Within each σ-row window rows stable-sort by descending length; the
-    sort applies only when it shrinks the padded panel (adaptive σ — on
-    banded/FEM matrices the natural order carries column locality and the
-    sort would *grow* per-(slice, stripe) widths).  Returns
-    ``(rows_sorted, sorted_, perm, whi, idx, nrows_pad)`` where ``perm``
-    maps sorted position → original row and ``whi``/``idx`` are the
-    unpermute-epilogue tables (padded to whole 8-block steps).  Shared by
-    ``SellMatrix.from_coo`` and the dist layer, which needs ONE row
-    permutation across all column shards of a row slab."""
-    rows = np.asarray(rows, dtype=np.int64)
-    cols = np.asarray(cols, dtype=np.int64)
-    lengths = (np.bincount(rows, minlength=nrows) if rows.size
-               else np.zeros(nrows, np.int64))
+def sigma_sort(rows, nrows: int, sigma: int):
+    """Sort rows by descending length within σ-row windows.  Returns
+    ``(perm, lengths_pad)``: ``perm[sorted position] = original row`` over
+    ``nrows`` padded to whole windows (pad rows are empty)."""
+    lengths = np.bincount(np.asarray(rows, np.int64), minlength=nrows)
     nrows_pad = cdiv(max(nrows, 1), sigma) * sigma
-    lengths_pad = np.zeros(nrows_pad, dtype=np.int64)
+    lengths_pad = np.zeros(nrows_pad, np.int64)
     lengths_pad[:nrows] = lengths
-
     win = lengths_pad.reshape(-1, sigma)
-    order_in_win = np.argsort(-win, axis=1, kind="stable")
-    base = (np.arange(win.shape[0], dtype=np.int64) * sigma)[:, None]
-    perm = (base + order_in_win).reshape(-1)  # perm[sorted_pos] = orig row
-    invperm = np.empty_like(perm)
-    invperm[perm] = np.arange(nrows_pad, dtype=np.int64)
-
-    if (not force_identity) and rows.size \
-            and _panel_slots(invperm[rows], cols, nrows_pad, ncols) \
-            < _panel_slots(rows, cols, nrows_pad, ncols):
-        rows_sorted = invperm[rows]  # relabel rows into sorted space
-        sorted_ = True
-    else:
-        perm = np.arange(nrows_pad, dtype=np.int64)
-        invperm = perm
-        rows_sorted = rows
-        sorted_ = False
-
-    # Epilogue tables: output block g reads y'[invperm[128g : 128g+128]],
-    # all within the σ-window containing those rows; padded to a multiple
-    # of the epilogue's 8-blocks-per-step granularity.
-    nblocks = nrows_pad // LANES
-    idx = invperm.reshape(nblocks, LANES).astype(np.int32)
-    whi = ((np.arange(nblocks, dtype=np.int64) * LANES) // sigma * sigma) \
-        // LANES
-    whi = np.minimum(whi, max(nblocks - 8, 0)).astype(np.int32)
-    nbp = cdiv(nblocks, 8) * 8
-    idx = np.vstack([idx, np.zeros((nbp - nblocks, LANES), np.int32)])
-    whi = np.concatenate([whi, np.zeros(nbp - nblocks, np.int32)])
-    return rows_sorted, sorted_, perm, whi, idx, nrows_pad
+    order = np.argsort(-win, axis=1, kind="stable")
+    perm = (np.arange(win.shape[0], dtype=np.int64)[:, None] * sigma
+            + order).reshape(-1)
+    return perm, lengths_pad
 
 
 @dataclass
-class SellMatrix:
+class SellMatrix(DeviceOperator):
     nrows: int
     ncols: int
     nnz: int
     sigma: int
-    slice_widths: np.ndarray  # per-slice padded K (slices of C=128 rows)
-    dev: DevPanel = field(repr=False)
-    plan: object = field(repr=False, default=None)  # PanelPlan (host arrays)
-    # byte-priced spill part over the SORTED row space (None = pure panel;
-    # formats.split — round 4, the same lowering as ELL/HYB)
-    dev_spill: DevSeg | None = field(repr=False, default=None)
-    spill_plan: object = field(repr=False, default=None)  # SegPlan
-    panel_nnz: int = 0
-    spill_nnz: int = 0
-    sorted_rows: bool = False  # did the adaptive σ-sort actually apply?
-    # permutation metadata for the y epilogue
-    _perm_whi: object = field(repr=False, default=None)  # jnp (NB,)
-    _perm_idx: object = field(repr=False, default=None)  # jnp (NB,128)
+    slice_widths: np.ndarray  # per-slice padded K (slices of C sorted rows)
+    dev: Permuted = field(repr=False)
+    sorted_rows: bool = False  # did the σ-sort move any row?
     # sorted-space triplets + row permutation, kept to materialize the
     # classical sliced arrays on demand (sigma_c.c:156-202 parity)
     _rows_sorted: np.ndarray = field(repr=False, default=None)
@@ -134,168 +73,108 @@ class SellMatrix:
     _vals: np.ndarray = field(repr=False, default=None)
     _perm: np.ndarray = field(repr=False, default=None)  # sorted pos -> orig
 
-    C = LANES
+    C = C
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        sigma: int = DEFAULT_SIGMA,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        split: bool = True,
-    ) -> "SellMatrix":
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray, *,
+                 sigma: int = DEFAULT_SIGMA) -> "SellMatrix":
         import jax.numpy as jnp
 
-        if sigma % LANES or sigma <= 0 or sigma > 1024:
-            raise ValueError("sigma must be a positive multiple of 128, ≤ 1024")
+        if sigma % C or sigma <= 0:
+            raise ValueError(f"sigma must be a positive multiple of {C}")
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols)
         vals = np.asarray(vals)
+        perm, lengths_pad = sigma_sort(rows, nrows, sigma)
+        invperm = np.empty_like(perm)
+        invperm[perm] = np.arange(perm.size)
+        widths = lengths_pad[perm].reshape(-1, C).max(axis=1)
 
-        # Adaptive σ-sort + epilogue tables (shared with the dist layer).
-        rows_sorted, sorted_, perm, whi, idx, nrows_pad = sigma_sort_tables(
-            rows, cols, nrows, ncols, sigma)
-
-        # Byte-priced panel/spill split over the SORTED row space (the σ
-        # relabeling is already applied, so the spill's segmented y' adds
-        # to the panel y' before the one unpermute epilogue).
-        dev_spill = spill_plan = None
-        keep_nnz, spill_nnz = rows.size, 0
-        if split and rows.size:
-            r, c, v, keep, _shape = priced_split(
-                np.asarray(rows_sorted, np.int64), np.asarray(cols, np.int64),
-                vals, nrows_pad, ncols)
-            if sorted_ and _shape == "spill":
-                # The adaptive σ decided from PANEL widths, but the priced
-                # split spills everything — a pure-spill execution ignores
-                # panel widths, and the sort would only scramble the
-                # segmented stream's locality and add the unpermute
-                # dispatch (measured 2× on the power-law suite).  Keep
-                # natural order.
-                rows_sorted, sorted_, perm, whi, idx, nrows_pad = \
-                    sigma_sort_tables(rows, cols, nrows, ncols, sigma,
-                                      force_identity=True)
-                r, c, v, keep, _shape = priced_split(
-                    np.asarray(rows_sorted, np.int64),
-                    np.asarray(cols, np.int64), vals, nrows_pad, ncols)
-            plan = build_panel_plan(r[keep], c[keep], v[keep], nrows_pad,
-                                    ncols, chunk=chunk, pack=pack)
-            if (~keep).any():
-                spill_plan = build_seg_plan(r[~keep], c[~keep], v[~keep],
-                                            nrows_pad, ncols, chunk=chunk,
-                                            bank=None)
-                dev_spill = DevSeg.from_plan(spill_plan)
-            keep_nnz, spill_nnz = int(keep.sum()), int((~keep).sum())
-        else:
-            plan = build_panel_plan(rows_sorted, cols, vals, nrows_pad, ncols,
-                                    chunk=chunk, pack=pack)
-
-        # Per-slice (128-row block) padded width from sorted lengths —
-        # reported as the format's slice metadata (the device plan refines
-        # this to per-(slice, stripe) widths).  Computed AFTER the split:
-        # a pure-spill route may have dropped the σ-sort (perm identity).
-        lengths = (np.bincount(rows, minlength=nrows) if rows.size
-                   else np.zeros(nrows, np.int64))
-        lengths_pad = np.zeros(nrows_pad, dtype=np.int64)
-        lengths_pad[:nrows] = lengths
-        nblocks = nrows_pad // LANES
-        slens = lengths_pad[perm].reshape(nblocks, LANES)
-        slice_widths = slens.max(axis=1)
-
+        # slices grouped by bucket width: slab b holds the slices of its
+        # width in order; slot(sorted row) = its row in concat(slabs)
+        # (rows past nrows are σ-padding: the sort puts them last, so the
+        # device slices stop at nrows)
+        bucket = bucket_width(widths)
+        slab_widths = np.unique(bucket)
+        slice_order = np.argsort(bucket, kind="stable")
+        size = np.clip(nrows - np.arange(widths.size) * C, 0, C)
+        slice_slot = np.empty(widths.size, np.int64)
+        slice_slot[slice_order] = np.cumsum(size[slice_order]) - size[slice_order]
+        sp = invperm[rows]
+        order = np.lexsort((cols, sp))
+        sp_s, cols_s, vals_s = sp[order], cols[order], vals[order]
+        slot = slice_slot[sp_s // C] + sp_s % C
+        k = row_ranks(sp_s, perm.size)
+        starts = np.concatenate(
+            [[0], np.cumsum([size[bucket == w].sum() for w in slab_widths])])
+        parts = []
+        for b, w in enumerate(slab_widths):
+            sel = (slot >= starts[b]) & (slot < starts[b + 1])
+            parts.append(panel(slot[sel] - starts[b], cols_s[sel],
+                               vals_s[sel], int(starts[b + 1] - starts[b]),
+                               int(w), ranks=k[sel]))
+        out_slot = slice_slot[invperm[:nrows] // C] + invperm[:nrows] % C
         return cls(
             nrows=nrows, ncols=ncols, nnz=rows.size, sigma=sigma,
-            slice_widths=slice_widths, dev=DevPanel.from_plan(plan),
-            plan=plan, dev_spill=dev_spill, spill_plan=spill_plan,
-            panel_nnz=keep_nnz, spill_nnz=spill_nnz, sorted_rows=sorted_,
-            _perm_whi=jnp.asarray(whi), _perm_idx=jnp.asarray(idx),
-            _rows_sorted=np.asarray(rows_sorted, np.int64),
-            _cols=np.asarray(cols, np.int32), _vals=vals, _perm=perm,
-        )
+            slice_widths=widths,
+            dev=Permuted(parts=tuple(parts),
+                         perm=jnp.asarray(out_slot.astype(np.int32))),
+            sorted_rows=bool((perm[:nrows] != np.arange(nrows)).any()),
+            _rows_sorted=sp_s, _cols=cols_s.astype(np.int32), _vals=vals_s,
+            _perm=perm)
 
     @classmethod
-    def from_sell(
-        cls,
-        nrows: int,
-        ncols: int,
-        slice_ptr: np.ndarray,
-        data: np.ndarray,
-        cols: np.ndarray,
-        perm: np.ndarray | None = None,
-        **kwargs,
-    ) -> "SellMatrix":
+    def from_sell(cls, nrows: int, ncols: int, slice_ptr: np.ndarray,
+                  data: np.ndarray, cols: np.ndarray,
+                  perm: np.ndarray | None = None, **kwargs) -> "SellMatrix":
         """Ingest the classical sliced arrays (``sigma_c.c:156-202``):
         element j of row r of slice s sits at ``slice_ptr[s] + r + j·C``
-        (column-major within the slice, C=128 here).  ``perm`` maps
-        sorted position → original row (identity when, like the reference,
-        the rows were pre-sorted outside and never unpermuted).  Pad slots
-        are value 0."""
+        (column-major within the slice).  ``perm`` maps sorted position →
+        original row (identity when, like the reference, the rows were
+        pre-sorted outside and never unpermuted).  Pad slots are value 0."""
         slice_ptr = np.asarray(slice_ptr, dtype=np.int64)
         data = np.asarray(data).reshape(-1)
         cols = np.asarray(cols).reshape(-1)
-        n = data.size
+        if data.size != slice_ptr[-1]:
+            raise ValueError(f"data has {data.size} slots, slice_ptr ends at "
+                             f"{slice_ptr[-1]}")
         nz = np.flatnonzero(data != 0)
         s = np.searchsorted(slice_ptr, nz, side="right") - 1
-        off = nz - slice_ptr[s]
-        sr = s * LANES + off % LANES  # sorted row
+        sr = s * C + (nz - slice_ptr[s]) % C  # sorted row
         orig = sr if perm is None else np.asarray(perm, np.int64)[sr]
-        if n != slice_ptr[-1]:
-            raise ValueError(f"data has {n} slots, slice_ptr ends at "
-                             f"{slice_ptr[-1]}")
         return cls.from_coo(nrows, ncols, orig, cols[nz], data[nz], **kwargs)
 
     def sell_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """The classical sliced arrays ``(slice_ptr, data, cols)``
-        (``sigma_c.c:84-202``): per slice of C=128 sorted rows a padded
+        (``sigma_c.c:84-202``): per slice of C sorted rows a padded
         width K_s = ``slice_widths[s]``; column-major packing within the
         slice; calloc-style zero padding."""
         widths = np.asarray(self.slice_widths, np.int64)
         slice_ptr = np.zeros(widths.size + 1, dtype=np.int64)
-        np.cumsum(widths * LANES, out=slice_ptr[1:])
+        np.cumsum(widths * C, out=slice_ptr[1:])
         data = np.zeros(max(int(slice_ptr[-1]), 1), dtype=np.float64)
         colsa = np.zeros(max(int(slice_ptr[-1]), 1), dtype=np.int32)
-        if self._rows_sorted is not None and self._rows_sorted.size:
-            order = np.lexsort((self._cols, self._rows_sorted))
-            sr = self._rows_sorted[order]
-            starts = np.zeros(sr.max() + 2, dtype=np.int64)
-            np.add.at(starts, sr + 1, 1)
-            np.cumsum(starts, out=starts)
-            k = np.arange(sr.size, dtype=np.int64) - starts[sr]
-            pos = slice_ptr[sr // LANES] + sr % LANES + k * LANES
-            data[pos] = self._vals[order]
-            colsa[pos] = self._cols[order]
+        sr = self._rows_sorted
+        if sr.size:
+            k = np.arange(sr.size) - np.searchsorted(sr, sr)
+            pos = slice_ptr[sr // C] + sr % C + k * C
+            data[pos] = self._vals
+            colsa[pos] = self._cols
         return slice_ptr, data, colsa
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
         """``(rows, cols, vals)`` triplets with ORIGINAL row ids (the σ
         relabeling undone via ``perm``) — fresh copies, part of every
         format's shared accessor surface."""
-        if self._rows_sorted is None:
-            z = np.zeros(0, np.int64)
-            return z, z.copy(), np.zeros(0)
-        rows = np.asarray(self._perm, np.int64)[self._rows_sorted]
-        return (rows, np.array(self._cols, np.int64, copy=True),
+        return (self._perm[self._rows_sorted],
+                np.array(self._cols, np.int64, copy=True),
                 np.array(self._vals, copy=True))
 
     @property
     def perm(self) -> np.ndarray:
         """sorted position → original row (identity when unsorted)."""
         return self._perm
-
-    @property
-    def epilogue_bytes(self) -> int:
-        """Extra HBM traffic of the unpermute epilogue when the σ-sort
-        applied: y' write + y' read + idx read (0 when skipped) — counted
-        by the bench traffic model so SELL's roofline stays honest."""
-        if not self.sorted_rows:
-            return 0
-        nbp = int(self._perm_idx.shape[0])
-        return nbp * LANES * (4 + 4 + 4)
 
     @staticmethod
     def cpu_spmv(slice_ptr, data, cols, perm, x, nrows: int) -> np.ndarray:
@@ -309,43 +188,8 @@ class SellMatrix:
         x = np.asarray(x, np.float64)
         n = data.size
         s = np.searchsorted(slice_ptr, np.arange(n), side="right") - 1
-        sr = s * LANES + (np.arange(n) - slice_ptr[s]) % LANES
+        sr = s * C + (np.arange(n) - slice_ptr[s]) % C
         orig = sr if perm is None else np.asarray(perm, np.int64)[sr]
         y = np.zeros(max(int(orig.max(initial=0)) + 1, nrows), np.float64)
         np.add.at(y, orig, data * x[cols])
         return y[:nrows]
-
-    def padded_matvec(self, x2d):
-        d = self.dev
-        if self.dev_spill is not None and self.panel_nnz == 0:
-            # pure-spill shape: don't pay a dispatch for an empty panel
-            y_sorted = segmented_spmv(self.dev_spill, x2d)
-        else:
-            y_sorted = panel_spmv(d, x2d)  # (out_rows, 128)
-            if self.dev_spill is not None:
-                import jax.numpy as jnp
-
-                ys = segmented_spmv(self.dev_spill, x2d)
-                n = max(y_sorted.shape[0], ys.shape[0])
-                if y_sorted.shape[0] < n:
-                    y_sorted = jnp.pad(y_sorted,
-                                       ((0, n - y_sorted.shape[0]), (0, 0)))
-                if ys.shape[0] < n:
-                    ys = jnp.pad(ys, ((0, n - ys.shape[0]), (0, 0)))
-                y_sorted = y_sorted + ys
-        if not self.sorted_rows:
-            # Adaptive σ kept the natural order — the permutation is the
-            # identity, so the unpermute epilogue would be a pure copy pass
-            # (it cost 16% of SpMV time on the band bench).  Skip it.
-            return y_sorted
-        y2 = y_sorted
-        if y2.shape[0] < 8:  # epilogue windows always slice 8 table rows
-            import jax.numpy as jnp
-            y2 = jnp.pad(y2, ((0, 8 - y2.shape[0]), (0, 0)))
-        return inverse_permute_blocks(self._perm_whi, self._perm_idx, y2)
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

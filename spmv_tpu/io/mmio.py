@@ -1,6 +1,6 @@
 """MatrixMarket (``.mtx``) I/O, pure NumPy.
 
-TPU-native replacement for the reference's NIST mmio library
+Replacement for the reference's NIST mmio library
 (``/root/reference/mmio/mmio.c:96-510``) and its wrapper
 ``read_size_of_matrices_from_file`` (``helper_functions.h:134-165``).
 

@@ -1,7 +1,7 @@
 """ctypes binding to the native C++ MatrixMarket body parser
 (``native/mm_parse.cpp``) with transparent build + pure-NumPy fallback.
 
-Set ``SPMV_TPU_NO_NATIVE=1`` to force the fallback.
+Set ``SPMV_NO_NATIVE=1`` to force the fallback.
 """
 
 from __future__ import annotations
@@ -38,7 +38,7 @@ def _load():
     if _tried:
         return _lib
     _tried = True
-    if os.environ.get("SPMV_TPU_NO_NATIVE"):
+    if os.environ.get("SPMV_NO_NATIVE"):
         return None
     if not ensure_built():
         return None

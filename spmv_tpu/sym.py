@@ -9,21 +9,11 @@ the stored triangle and computes
 
     y = (L + D)·x  +  Lᵀ·x
 
-as two segmented-engine passes, where the transpose plan is just the
-strict triangle with rows/cols swapped.
-
-What this buys — measured, not assumed (round-5 verdict item 6): the
-HOST side halves (triplets, parse, conversion, plan cache); the DEVICE
-side is byte-neutral by architecture: both passes stream their own
-value/index planes, so the streamed element count equals the expanded
-plan's (2m+d).  A single-pass dual-scatter kernel would truly halve
-device bytes but needs a per-element transpose scatter — the windowed
-y-reduction routes whole sublane rows to one y block (one u8 target per
-row), and scattering by per-element ``lo`` instead would take a
-(128,128) one-hot matmul per sublane row (~16× the window-matmul cost
-that is already the engine's largest op, DESIGN.md facts 9/13) — priced
-and not taken.  The bench row records the measured comparison on the
-symmetrized FEM proxy.
+as two row-block kernel passes (``spmv_tpu.device.SumOf`` of two
+``Csr``), where the transpose pass is the strict triangle with rows and
+columns swapped, re-sorted by its new rows.
+The host triplets halve; the device holds both passes' index and value
+arrays, so it streams as many elements as the expanded matrix.
 
 Accepted input: the stored triangle (MatrixMarket symmetric semantics —
 each off-diagonal entry represents both (r,c) and (c,r)).  Entries given
@@ -36,40 +26,25 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
-from spmv_tpu.device import DevSeg, x_to_table, y_from_padded
-from spmv_tpu.formats.base import DEFAULT_CHUNK, build_seg_plan
-from spmv_tpu.kernels.engines import segmented_spmv
+from spmv_tpu.device import DeviceOperator, SumOf, csr
 
 __all__ = ["SymmetricMatrix"]
 
 
 @dataclass
-class SymmetricMatrix:
-    """Symmetric operator from triangle storage: two seg-engine passes."""
+class SymmetricMatrix(DeviceOperator):
+    """Symmetric operator from triangle storage: two segmented passes."""
 
     nrows: int
     ncols: int
     tri_rows: np.ndarray  # stored (lower-triangle) triplets, 0-based
     tri_cols: np.ndarray
     tri_vals: np.ndarray
-    dev: DevSeg = field(repr=False)  # L + D
-    dev_spill: DevSeg = field(repr=False)  # Lᵀ (strict upper)
-    plan: object = field(repr=False, default=None)
-    spill_plan: object = field(repr=False, default=None)
+    dev: SumOf = field(repr=False)  # (L + D, Lᵀ)
 
     @classmethod
-    def from_coo(
-        cls,
-        nrows: int,
-        ncols: int,
-        rows: np.ndarray,
-        cols: np.ndarray,
-        vals: np.ndarray,
-        *,
-        chunk: int = DEFAULT_CHUNK,
-        pack: int | None = None,
-        pool: bool | None = None,
-    ) -> "SymmetricMatrix":
+    def from_coo(cls, nrows: int, ncols: int, rows: np.ndarray,
+                 cols: np.ndarray, vals: np.ndarray) -> "SymmetricMatrix":
         if nrows != ncols:
             raise ValueError("symmetric storage requires a square matrix")
         rows = np.asarray(rows, dtype=np.int64)
@@ -80,27 +55,20 @@ class SymmetricMatrix:
         up = rows < cols
         r = np.where(up, cols, rows)
         c = np.where(up, rows, cols)
-
-        plan = build_seg_plan(r, c, vals, nrows, ncols, chunk=chunk,
-                              pack=pack, pool=pool)
         strict = r > c
-        spill_plan = build_seg_plan(c[strict], r[strict], vals[strict],
-                                    nrows, ncols, chunk=chunk, pack=pack,
-                                    pool=pool)
-        return cls(
-            nrows=nrows, ncols=ncols,
-            tri_rows=r, tri_cols=c, tri_vals=vals,
-            dev=DevSeg.from_plan(plan),
-            dev_spill=DevSeg.from_plan(spill_plan),
-            plan=plan, spill_plan=spill_plan,
-        )
+        low = np.lexsort((c, r))
+        up = np.lexsort((r[strict], c[strict]))
+        dev = SumOf(parts=(
+            csr(r[low], c[low], vals[low], nrows),
+            csr(c[strict][up], r[strict][up], vals[strict][up], nrows)))
+        return cls(nrows=nrows, ncols=ncols, tri_rows=r, tri_cols=c,
+                   tri_vals=vals, dev=dev)
 
     @property
     def nnz(self) -> int:
         """Nonzeros of the OPERATOR (expanded form) — throughput and the
         reference GFLOP/s formula count the work actually done."""
-        strict = int((self.tri_rows > self.tri_cols).sum())
-        return self.tri_rows.size + strict
+        return self.tri_rows.size + self.spill_nnz
 
     @property
     def stored_nnz(self) -> int:
@@ -108,8 +76,7 @@ class SymmetricMatrix:
 
     @property
     def spill_nnz(self) -> int:
-        """Strict-triangle count — lets the fused multi-RHS path
-        (``api._spmm_fused``) treat the transpose pass like a HYB spill."""
+        """Strict-triangle count: the elements of the transpose pass."""
         return int((self.tri_rows > self.tri_cols).sum())
 
     def to_coo(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -120,23 +87,3 @@ class SymmetricMatrix:
         cols = np.concatenate([self.tri_cols, self.tri_rows[strict]])
         vals = np.concatenate([self.tri_vals, self.tri_vals[strict]])
         return rows.copy(), cols.copy(), np.array(vals, copy=True)
-
-    def padded_matvec(self, x2d):
-        import jax.numpy as jnp
-
-        y1 = segmented_spmv(self.dev, x2d)
-        if self.spill_nnz == 0:  # diagonal-only: skip the empty transpose
-            return y1
-        y2 = segmented_spmv(self.dev_spill, x2d)
-        n = max(y1.shape[0], y2.shape[0])
-        if y1.shape[0] < n:
-            y1 = jnp.pad(y1, ((0, n - y1.shape[0]), (0, 0)))
-        if y2.shape[0] < n:
-            y2 = jnp.pad(y2, ((0, n - y2.shape[0]), (0, 0)))
-        return y1 + y2
-
-    def matvec(self, x):
-        x2d = x_to_table(x, self.ncols)
-        return y_from_padded(self.padded_matvec(x2d), self.nrows)
-
-    __matmul__ = matvec

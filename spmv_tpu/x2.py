@@ -1,216 +1,90 @@
-"""Extended-precision (f32x2 / double-single) SpMV containers.
+"""Extended-precision (f32x2) SpMV containers.
 
-``X2Matrix.from_coo(format, ...)`` keeps the input values in fp64,
-splits them into (hi, lo) f32 planes that share ONE plan layout (the
-packed placement depends only on the sparsity pattern, never on the
-values — the residual plan is literally a second ``build_*_plan`` call
-over the residual values), and runs the double-single engine variants
-(``kernels.engines_x2``).  ``matvec`` takes an fp64 x and returns an
-fp64 y accurate to ~window·2⁻³⁸ — the capability the all-fp64 reference
-holds over the fp32 path (``coo.c:39-42``; validated at its abs 1e-6
-EPSILON, ``inc/helper_functions.h:11``).
+``X2Matrix.from_coo(format, ...)`` keeps each fp64 input value as two
+float32 planes, ``hi = f32(v)`` and ``lo = f32(v - hi)``, laid out by the
+format exactly like its float32 values (the layouts depend only on the
+sparsity pattern, so the two planes agree slot for slot).  ``matvec``
+takes an fp64 x and returns an fp64 y; the product runs in fp64
+arithmetic on the device over ``hi + lo`` (which restores each value to
+~2⁻⁴⁸ relative), traced inside a scoped ``jax.enable_x64``.  That is the
+precision class of the all-fp64 reference (``coo.c:39-42``), validated at
+its absolute 1e-6 EPSILON (``inc/helper_functions.h:11``).
 
-Covers the five reference formats (csr/coo/cmrs → segmented engine,
-ell/sell → panel engine with the σ-sort + unpermute epilogue applied to
-both halves) plus HYB (round 4): the priced panel/spill split depends
-only on the sparsity pattern, so both parts carry (hi, lo) planes and
-``matvec`` adds the two double-single partial sums in fp64 on host —
-exact at the output precision.  BSR stays fp32-only: its tiles feed the
-MXU as dense f32 matmuls, and a double-single tile product would need
-three extra full matmuls (hi·lo, lo·hi, error terms) for a format whose
-point is MXU density — use csr/f32x2 when extended precision matters
-more than R ≳ 32 throughput.
+Covers the five reference formats plus HYB.  BSR stays fp32-only: its
+point is dense-tile matrix-unit throughput at large R.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
-from spmv_tpu.device import DevPanel, DevSeg, x_to_table_x2
-from spmv_tpu.formats.base import (
-    DEFAULT_CHUNK,
-    LANES,
-    build_panel_plan,
-    build_seg_plan,
-    cdiv,
-)
+from spmv_tpu.device import apply, nbytes, split_x2, with_lo
 
-__all__ = ["X2Matrix", "X2_FORMATS"]
+__all__ = ["X2Matrix", "X2_FORMATS", "x2_apply"]
 
 X2_FORMATS = ("csr", "coo", "cmrs", "ell", "sell", "sell_c_sigma", "hyb")
-_SEG = ("csr", "coo", "cmrs")
+
+
+def x2_build(format: str, nrows: int, ncols: int, rows, cols, vals):
+    """Device container of ``format`` carrying (hi, lo) value planes."""
+    from spmv_tpu.api import FORMATS
+
+    format = format.lower()
+    if format not in X2_FORMATS:
+        raise ValueError(
+            f"f32x2 supports {sorted(set(X2_FORMATS))}, not {format!r}")
+    hi, lo = split_x2(vals)
+    cls = FORMATS[format]
+    return with_lo(cls.from_coo(nrows, ncols, rows, cols, hi).dev,
+                   cls.from_coo(nrows, ncols, rows, cols, lo).dev)
+
+
+def x2_apply(fn, *args):
+    """Run ``fn(*args)`` with fp64 enabled: fp64 host arrays in ``args``
+    reach the device as fp64, and the result comes back as NumPy."""
+    with jax.enable_x64(True):
+        args = [jnp.asarray(a) if isinstance(a, np.ndarray) else a
+                for a in args]
+        return np.asarray(fn(*args))
 
 
 @dataclass
 class X2Matrix:
-    x2 = True  # marker for dtype-aware call sites (api.spmm)
+    x2 = True  # fp64 x in, fp64 y out
     format: str
     nrows: int
     ncols: int
     nnz: int
-    dev: object = field(repr=False)  # DevSeg or DevPanel with vals_lo
-    is_seg: bool = True
-    # SELL epilogue tables (None when the adaptive σ kept natural order)
-    _perm_whi: object = field(repr=False, default=None)
-    _perm_idx: object = field(repr=False, default=None)
-    # HYB's segmented spill part (None = single-engine shape)
-    dev_spill: object = field(repr=False, default=None)
+    dev: object = field(repr=False)  # device container with vals_lo
 
     @classmethod
-    def from_coo(cls, format: str, nrows: int, ncols: int, rows, cols, vals,
-                 *, chunk: int = DEFAULT_CHUNK, pack: int | None = None,
-                 sigma: int | None = None) -> "X2Matrix":
-        import jax.numpy as jnp
-
-        format = format.lower()
-        if format not in X2_FORMATS:
-            raise ValueError(
-                f"f32x2 supports {sorted(set(X2_FORMATS))}, not {format!r}")
-        rows = np.asarray(rows, dtype=np.int64)
-        cols = np.asarray(cols, dtype=np.int64)
-        v64 = np.asarray(vals, dtype=np.float64)
-        vh = v64.astype(np.float32)
-        vl = (v64 - vh.astype(np.float64)).astype(np.float32)
-
-        perm_whi = perm_idx = None
-        dev_spill = None
-        is_seg = format in _SEG
-        if format == "hyb":
-            # the priced split is pattern-only, so hi and lo planes share
-            # one (keep, spill) partition; each part runs its own x2
-            # engine and matvec adds the two double-single partial sums
-            # in fp64 (exact at the output precision)
-            from spmv_tpu.formats.split import priced_split
-
-            # split the fp64 values so the returned ordering carries them;
-            # the hi/lo planes are re-derived on the split's ordering
-            r, c, v64_s, keep, shape = priced_split(rows, cols, v64,
-                                                    nrows, ncols)
-            vh2 = v64_s.astype(np.float32)
-            vl2 = (v64_s - vh2.astype(np.float64)).astype(np.float32)
-            if shape == "spill":
-                is_seg = True
-                plan = build_seg_plan(r, c, vh2, nrows, ncols, chunk=chunk,
-                                      pack=pack)
-                plan_lo = build_seg_plan(r, c, vl2, nrows, ncols,
-                                         chunk=chunk, pack=plan.pack)
-                dev = DevSeg.from_plan(plan, plan_lo)
-            else:
-                plan = build_panel_plan(r[keep], c[keep], vh2[keep], nrows,
-                                        ncols, chunk=chunk, pack=pack)
-                plan_lo = build_panel_plan(r[keep], c[keep], vl2[keep],
-                                           nrows, ncols, chunk=chunk,
-                                           pack=plan.pack)
-                dev = DevPanel.from_plan(plan, plan_lo)
-                if shape == "hyb":
-                    sp = build_seg_plan(r[~keep], c[~keep], vh2[~keep],
-                                        nrows, ncols, chunk=chunk)
-                    sp_lo = build_seg_plan(r[~keep], c[~keep], vl2[~keep],
-                                           nrows, ncols, chunk=chunk,
-                                           pack=sp.pack)
-                    dev_spill = DevSeg.from_plan(sp, sp_lo)
-            return cls(format=format, nrows=nrows, ncols=ncols,
-                       nnz=rows.size, dev=dev, is_seg=is_seg,
-                       dev_spill=dev_spill)
-        if is_seg:
-            plan = build_seg_plan(rows, cols, vh, nrows, ncols, chunk=chunk,
-                                  pack=pack)
-            plan_lo = build_seg_plan(rows, cols, vl, nrows, ncols,
-                                     chunk=chunk, pack=plan.pack)
-            dev = DevSeg.from_plan(plan, plan_lo)
-        else:
-            y_rows = nrows
-            if format in ("sell", "sell_c_sigma"):
-                from spmv_tpu.formats.sell import (DEFAULT_SIGMA,
-                                                   sigma_sort_tables)
-
-                rows, sorted_, _p, whi, idx, y_rows = sigma_sort_tables(
-                    rows, cols, nrows, ncols, sigma or DEFAULT_SIGMA)
-                if sorted_:
-                    perm_whi = jnp.asarray(whi)
-                    perm_idx = jnp.asarray(idx)
-            plan = build_panel_plan(rows, cols, vh, y_rows, ncols,
-                                    chunk=chunk, pack=pack)
-            plan_lo = build_panel_plan(rows, cols, vl, y_rows, ncols,
-                                       chunk=chunk, pack=plan.pack)
-            dev = DevPanel.from_plan(plan, plan_lo)
-        return cls(format=format, nrows=nrows, ncols=ncols, nnz=rows.size,
-                   dev=dev, is_seg=is_seg,
-                   _perm_whi=perm_whi, _perm_idx=perm_idx)
+    def from_coo(cls, format: str, nrows: int, ncols: int, rows, cols,
+                 vals) -> "X2Matrix":
+        return cls(format=format.lower(), nrows=nrows, ncols=ncols,
+                   nnz=int(np.asarray(rows).size),
+                   dev=x2_build(format, nrows, ncols, rows, cols, vals))
 
     def matvec(self, x) -> np.ndarray:
-        """y = A·x in double-single; x is converted from fp64 on host,
-        the return value is fp64 (y_hi + y_lo)."""
-        import jax.numpy as jnp
+        """y = A·x in fp64: fp64 x in, fp64 y out."""
+        x = np.asarray(x, np.float64)
+        if x.ndim != 1 or x.shape[0] != self.ncols:
+            raise ValueError(f"x has {x.size} entries, matrix has "
+                             f"{self.ncols} columns")
+        return x2_apply(apply, self.dev, x)
 
-        from spmv_tpu.kernels.engines_x2 import (panel_spmv_x2,
-                                                 segmented_spmv_x2)
-
-        x2d = jnp.asarray(x_to_table_x2(x, self.ncols))
-        fn = segmented_spmv_x2 if self.is_seg else panel_spmv_x2
-        yh, yl = fn(self.dev, x2d)
-        if self.dev_spill is not None:
-            sh, sl = segmented_spmv_x2(self.dev_spill, x2d)
-            # the two engines' padded row counts may differ (independent
-            # window heights); rows past the true blocks are zero
-            n = max(yh.shape[0], sh.shape[0])
-            yp = np.zeros((n, LANES), np.float64)
-            yp[: yh.shape[0]] = (np.asarray(yh, np.float64)
-                                 + np.asarray(yl, np.float64))
-            yp[: sh.shape[0]] += (np.asarray(sh, np.float64)
-                                  + np.asarray(sl, np.float64))
-            return yp.reshape(-1)[: self.nrows]
-        if self._perm_whi is not None:
-            from spmv_tpu.kernels.engines import inverse_permute_blocks
-
-            nb = int(self._perm_idx.shape[0])
-            for_pad = max(8 - yh.shape[0], 0)
-            if for_pad:
-                yh = jnp.pad(yh, ((0, for_pad), (0, 0)))
-                yl = jnp.pad(yl, ((0, for_pad), (0, 0)))
-            # the permutation is exact — apply it to each half
-            yh = inverse_permute_blocks(self._perm_whi, self._perm_idx,
-                                        yh).reshape(-1, LANES)[:nb]
-            yl = inverse_permute_blocks(self._perm_whi, self._perm_idx,
-                                        yl).reshape(-1, LANES)[:nb]
-        y = (np.asarray(yh, dtype=np.float64)
-             + np.asarray(yl, dtype=np.float64))
-        return y.reshape(-1)[: self.nrows]
+    def matmat(self, X) -> np.ndarray:
+        """Y = A·X in fp64 for X of shape (ncols, R)."""
+        X = np.asarray(X, np.float64)
+        if X.ndim != 2 or X.shape[0] != self.ncols:
+            raise ValueError(f"X must be ({self.ncols}, R), got {X.shape}")
+        return x2_apply(apply, self.dev, X)
 
     __matmul__ = matvec
 
-    def x_table(self, x0) -> object:
-        """The bench runner's x-table hook: double-single (2S,128)."""
-        import jax.numpy as jnp
-
-        return jnp.asarray(x_to_table_x2(x0, self.ncols))
-
-    def padded_matvec(self, x2d):
-        """Chained-bench entry: runs the full double-single kernel; the
-        f32 (hi+lo) combine only feeds the timing loop's dependency."""
-        from spmv_tpu.kernels.engines_x2 import (panel_spmv_x2,
-                                                 segmented_spmv_x2)
-
-        fn = segmented_spmv_x2 if self.is_seg else panel_spmv_x2
-        yh, yl = fn(self.dev, x2d)
-        if self.dev_spill is not None:
-            import jax.numpy as jnp
-
-            sh, sl = segmented_spmv_x2(self.dev_spill, x2d)
-            n = max(yh.shape[0], sh.shape[0])
-            return (jnp.zeros((n, LANES), jnp.float32)
-                    .at[: yh.shape[0]].add(yh + yl)
-                    .at[: sh.shape[0]].add(sh + sl))
-        return yh + yl
-
     @property
-    def stream_bytes(self) -> int:
-        if self.dev_spill is not None:
-            return self.dev.stream_bytes + self.dev_spill.stream_bytes
-        return self.dev.stream_bytes
-
-    @property
-    def out_blocks(self) -> int:
-        return cdiv(max(self.nrows, 1), LANES)
+    def padded_bytes(self) -> int:
+        return nbytes(self.dev)

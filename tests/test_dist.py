@@ -1,5 +1,5 @@
 """Multi-device SpMV on the 8-way CPU mesh (the reference has no
-distribution; this is BASELINE.json's scaling dimension)."""
+distribution; this is the framework's scaling dimension)."""
 
 import numpy as np
 import pytest
@@ -72,13 +72,13 @@ def test_mesh_smaller_than_devices(mesh):
 
 
 def test_weak_scaling_harness(mesh):
-    # Structure/plumbing test on the CPU mesh (timings are simulation).
+    # Structure/plumbing test on the CPU mesh; the report names the device.
     from spmv_tpu.bench.scaling import weak_scaling_report
 
     rep = weak_scaling_report(format="cmrs", rows_per_device=256,
                               avg_nnz_per_row=6, bandwidth=30,
-                              device_counts=[1, 2])
-    assert rep["simulated"] is True
+                              device_counts=[1, 2], iters=2, repeats=1)
+    assert rep["device"]["platform"] == "cpu"
     assert [p["devices"] for p in rep["points"]] == [1, 2]
     assert rep["points"][0]["efficiency"] == 1.0
     assert rep["points"][1]["nrows"] == 2 * rep["points"][0]["nrows"]
@@ -113,7 +113,7 @@ def test_sharded_unsupported_rejected(mesh):
 @pytest.mark.parametrize("gather_x", [True, False])
 def test_row_sharded_bsr_spmm(mesh, gather_x):
     """Row-sharded BSR (round-3 verdict item 8): block rows shard
-    trivially; per-shard batched MXU matmul + segment-sum, X replicated
+    trivially; per-shard batched tile matmul + segment-sum, X replicated
     or all-gathered.  Ragged rows (nrows % D != 0) and matvec parity."""
     info, r, c, v, x = _data(n=1100, seed=5)  # 1100 % 8 != 0
     a = RowShardedSpmv("bsr", info.nrows, info.ncols, r, c, v, mesh,
@@ -152,27 +152,6 @@ def test_row_sharded_spmm(mesh):
         assert rep.ok, f"column {j}: {rep}"
 
 
-def test_weak_scaling_analytic_model(mesh):
-    """One-chip boxes bound the ≥80% multi-host target with an ICI cost
-    model on the measured D=1 time (round-1 verdict: the scaling target
-    was entirely unexercised)."""
-    from spmv_tpu.bench.scaling import analytic_weak_scaling, weak_scaling_report
-
-    rep = weak_scaling_report(format="cmrs", rows_per_device=256,
-                              avg_nnz_per_row=6, bandwidth=30,
-                              device_counts=[1], force_model=True)
-    assert "modeled_efficiency" in rep
-    effs = {m["devices"]: m for m in rep["modeled_efficiency"]}
-    assert set(effs) == {2, 4, 8, 16}
-    for m in effs.values():
-        assert 0 < m["eff_no_overlap"] <= m["eff_overlap"] <= 1.0
-
-    # at realistic sizes the model itself predicts the 80% target is met:
-    # cant-scale slab (16384 rows/device, t1 ~ 60us measured on the chip)
-    model = analytic_weak_scaling(60e-6, rows_per_device=16384)
-    assert all(m["eff_no_overlap"] >= 0.8 for m in model)
-
-
 def _x2_data(n=700, seed=21):
     """fp64-only mantissa content so an f32 cast cannot match the oracle."""
     info, r, c, v = synth.synthetic_cant(n=n, avg_nnz_per_row=10,
@@ -187,9 +166,9 @@ def _x2_data(n=700, seed=21):
 @pytest.mark.parametrize("fmt", ["csr", "cmrs", "ell", "sell"])
 @pytest.mark.parametrize("gather_x", [True, False])
 def test_row_sharded_x2(mesh, fmt, gather_x):
-    """Row-sharded double-single matches the fp64 oracle far beyond the
+    """Row-sharded f32x2 matches the fp64 oracle far beyond the
     reference's abs 1e-6 EPSILON (row partition: no cross-shard sums, so
-    accuracy equals the single-chip X2Matrix)."""
+    accuracy equals the single-device X2Matrix)."""
     info, r, c, v, x, yref = _x2_data()
     a = RowShardedSpmv(fmt, info.nrows, info.ncols, r, c, v, mesh,
                        gather_x=gather_x, dtype="f32x2")
@@ -199,9 +178,8 @@ def test_row_sharded_x2(mesh, fmt, gather_x):
 
 @pytest.mark.parametrize("fmt", ["csr", "coo", "ell", "sell"])
 def test_col_sharded_x2(mesh, fmt):
-    """Column-sharded double-single: the cross-shard partial-y fold is a
-    TwoSum chain (not psum), so the compensated bits survive the
-    reduction and the result stays double-single grade."""
+    """Column-sharded f32x2: the partial ys are fp64 and the cross-shard
+    psum adds them in fp64, so the result stays fp64 grade."""
     info, r, c, v, x, yref = _x2_data(n=900, seed=23)
     a = ColShardedSpmv(fmt, info.nrows, info.ncols, r, c, v, mesh,
                        dtype="f32x2")
@@ -215,15 +193,14 @@ def test_sharded_x2_rejects_bad_dtype(mesh):
         RowShardedSpmv("csr", info.nrows, info.ncols, r, c, v, mesh,
                        dtype="f64")
     with pytest.raises(NotImplementedError):
-        RowShardedSpmv("hyb", info.nrows, info.ncols, r, c, v, mesh,
+        RowShardedSpmv("bsr", info.nrows, info.ncols, r, c, v, mesh,
                        dtype="f32x2")
 
 
 def test_row_sharded_sell_sigma_padded_shards(mesh):
-    """Regression: rps=1536 rows/shard with σ=1024 pads each shard's plan
-    to 2048 rows; the sorted y must keep ALL padded blocks through the
-    unpermute epilogue (truncating to rps/128 blocks first corrupted
-    every row ≥ 1024 within each shard — 4085 bad rows on this case)."""
+    """Regression: 1536 rows/shard with σ=1024 pads each shard's sort to
+    2048 rows; every real row must come back from the unpermute gather
+    (an earlier layout corrupted every row ≥ 1024 within each shard)."""
     info, r, c, v = synth.synthetic_cant(n=12288, avg_nnz_per_row=8,
                                          bandwidth=60, seed=3)
     x = np.random.default_rng(1).standard_normal(info.ncols).astype(np.float32)
@@ -234,7 +211,7 @@ def test_row_sharded_sell_sigma_padded_shards(mesh):
                        scale=golden_spmv(info.nrows, r, c, np.abs(v),
                                          np.abs(x)))
     assert rep.ok, str(rep)
-    # and the double-single path at the same shape
+    # and the f32x2 path at the same shape
     v64 = np.asarray(v, np.float64) * (1 + 1e-9 * np.arange(v.size))
     yref64 = golden_spmv(info.nrows, r, c, v64, x.astype(np.float64))
     a2 = RowShardedSpmv("sell", info.nrows, info.ncols, r, c, v64, mesh,
@@ -245,12 +222,9 @@ def test_row_sharded_sell_sigma_padded_shards(mesh):
 
 @pytest.mark.parametrize("fmt", ["csr", "sell", "hyb"])
 def test_row_sharded_fused_spmm(mesh, fmt):
-    """2 <= R <= MULTI_RHS_MAX row-sharded SpMM takes the fused
-    multi-RHS engine pass per shard — ONE x all-gather for all R
-    columns (DESIGN.md fact 12); beyond the envelope it falls back to
-    the per-column sharded matvec loop."""
+    """Row-sharded SpMM: ONE x all-gather and one per-shard pass serve
+    all R columns, for small and large R alike."""
     from spmv_tpu import synth
-    from spmv_tpu.kernels.engines import MULTI_RHS_MAX
 
     info, r, c, v = synth.power_law(n=1024, avg_nnz_per_row=10,
                                     bandwidth=256, seed=5)
@@ -258,7 +232,7 @@ def test_row_sharded_fused_spmm(mesh, fmt):
     A[r, c] = v
     a = RowShardedSpmv(fmt, info.nrows, info.ncols, r, c, v, mesh,
                        gather_x=True)
-    for R in (3, MULTI_RHS_MAX + 1):  # fused path, then the fallback
+    for R in (3, 9):
         X = np.random.default_rng(R).standard_normal(
             (info.ncols, R)).astype(np.float32)
         Y = np.asarray(a.spmm(X))
@@ -270,8 +244,8 @@ def test_row_sharded_fused_spmm(mesh, fmt):
 
 @pytest.mark.parametrize("fmt", ["csr", "sell", "hyb"])
 def test_col_sharded_fused_spmm(mesh, fmt):
-    """Column-sharded fused multi-RHS: one plan pass + ONE psum for all
-    R columns (DESIGN.md fact 12)."""
+    """Column-sharded SpMM: one per-shard pass + ONE psum for all R
+    columns."""
     from spmv_tpu import synth
 
     info, r, c, v = synth.power_law(n=1024, avg_nnz_per_row=10,
@@ -290,8 +264,8 @@ def test_col_sharded_fused_spmm(mesh, fmt):
 
 @pytest.mark.parametrize("fmt", ["csr", "sell", "hyb"])
 def test_ring_sharded_fused_spmm(mesh, fmt):
-    """Ring-sharded fused multi-RHS: all R columns' x blocks rotate as
-    ONE ring carry — D ppermutes instead of R·D (DESIGN.md fact 12)."""
+    """Ring-sharded SpMM: all R columns' x blocks rotate as ONE ring
+    carry — D ppermutes instead of R·D."""
     from spmv_tpu import synth
     from spmv_tpu.dist.ring import RingShardedSpmv
 
@@ -311,10 +285,9 @@ def test_ring_sharded_fused_spmm(mesh, fmt):
 
 @pytest.mark.parametrize("fmt", ["csr", "cmrs", "ell", "sell", "hyb"])
 def test_chunked_gather_overlap(mesh, fmt):
-    """Round-5 verdict item 3: the chunked-gather overlapped form of the
-    row partition — C per-chunk all-gathers interleaved with per-chunk
-    compute (structural double buffer) must match the oracle exactly
-    like the monolithic-gather form."""
+    """The chunked-gather overlapped form of the row partition — C
+    per-chunk all-gathers interleaved with per-chunk compute — must
+    match the oracle like the monolithic-gather form."""
     from spmv_tpu.dist.overlap import ChunkedRowSpmv
 
     info, r, c, v, x = _data(n=900, seed=17)

@@ -1,4 +1,4 @@
-"""Every format kernel vs the golden oracle — the reference's
+"""Every format's device product vs the golden oracle — the reference's
 check_result discipline (helper_functions.h:184-236) plus the edge cases
 where the reference harbors latent bugs (SURVEY.md §2.2)."""
 
@@ -7,7 +7,7 @@ import pytest
 
 import spmv_tpu
 from spmv_tpu import synth
-from spmv_tpu.oracle import check_result, engine_rel_tol, golden_spmv
+from spmv_tpu.oracle import check_result, fp32_check, fp32_rel_tol, golden_spmv
 
 FORMATS = ["coo", "csr", "ell", "sell", "cmrs", "hyb"]
 EDGES = sorted(synth.EDGE_CASES)
@@ -20,22 +20,7 @@ def run_format(fmt, info, r, c, v, x=None):
     a = spmv_tpu.from_coo(fmt, info.nrows, info.ncols, r, c, v)
     y = np.asarray(a.matvec(x.astype(np.float32)))
     assert y.shape == (info.nrows,)
-    expected = golden_spmv(info.nrows, r, c, v, x.astype(np.float32))
-    scale = golden_spmv(info.nrows, r, c, np.abs(v), np.abs(x.astype(np.float32)))
-    # Mirror the production validator (cli._validate): segmented-engine
-    # plans bound by the sublane-window magnitude — the engine's
-    # documented rounding model (oracle.seg_engine_scale), needed since
-    # dense packing mixes rows of different magnitude into shared windows.
-    # container_scale walks every SegPlan the container runs (main plan
-    # or the priced spill part of hyb/ell/sell).
-    from spmv_tpu.oracle import container_scale
-
-    scale = container_scale(a, x.astype(np.float32), scale)
-    lengths = np.bincount(r, minlength=info.nrows) if r.size else np.zeros(1)
-    rep = check_result(
-        expected, y, tol_abs=1e-5, scale=scale,
-        tol_rel=engine_rel_tol(int(lengths.max() or 1)),
-    )
+    rep = fp32_check(info.nrows, r, c, v, x.astype(np.float32), y)
     assert rep.ok, f"{fmt}: {rep}"
     return a
 
@@ -135,7 +120,7 @@ def test_sell_sigma_variants():
         a = spmv_tpu.SellMatrix.from_coo(info.nrows, info.ncols, r, c, v,
                                          sigma=sigma)
         rep = check_result(expected, np.asarray(a.matvec(x)),
-                           tol_abs=1e-5, tol_rel=engine_rel_tol(12),
+                           tol_abs=1e-5, tol_rel=fp32_rel_tol(12),
                            scale=scale)
         assert rep.ok, f"sigma={sigma}: {rep}"
 
@@ -145,7 +130,7 @@ def test_sell_padding_beats_ell_on_skewed():
     ell = spmv_tpu.EllMatrix.from_coo(info.nrows, info.ncols, r, c, v)
     sell = spmv_tpu.SellMatrix.from_coo(info.nrows, info.ncols, r, c, v,
                                         sigma=128)
-    assert sell.plan.padded_slots <= ell.plan.padded_slots
+    assert sell.padded_slots <= ell.padded_slots
 
 
 @pytest.mark.parametrize("fmt", FORMATS)
@@ -162,40 +147,24 @@ def test_tall_rectangular(fmt):
     run_format(fmt, info, r, c, v)
 
 
-def test_vmem_budget_guard():
-    # whole-y/whole-x residency bounds single-chip matrix size; the error
-    # must point at the distributed layer.
-    with pytest.raises(ValueError, match="RowShardedSpmv"):
-        spmv_tpu.from_coo("csr", 8_000_000, 8_000_000, [0], [0], [1.0])
-
-
 @pytest.mark.parametrize("fmt", ["csr", "coo", "cmrs"])
 def test_heterogeneous_row_magnitudes(fmt):
-    """Rows whose magnitudes differ by 1e4 share sublane windows in the
-    segmented stream; the window-magnitude scale (oracle.seg_engine_scale)
-    must bound the prefix-difference rounding where the per-row scale
-    under-bounds it (ADVICE round-1, oracle.py:119)."""
-    from spmv_tpu.oracle import seg_engine_scale
-
+    """Rows whose magnitudes differ by 1e4, in short alternating runs: each
+    row's sum rounds at its own magnitude (the device reduces every row
+    separately), so the per-row scale Σ|v·x| of ``oracle.fp32_check``
+    bounds the error of small rows next to large ones."""
     info, r, c, v = synth.synthetic_cant(n=600, avg_nnz_per_row=12,
                                          bandwidth=60, seed=21)
-    # scale each row by 10^(±2) alternating in short runs so tiny rows sit
-    # in the same 127-element window as rows 1e4× larger
     row_scale = 10.0 ** (2.0 * np.where((r // 3) % 2 == 0, 1.0, -1.0))
     v = (v * row_scale).astype(np.float64)
-    rng = np.random.default_rng(5)
-    x = rng.standard_normal(info.ncols)
-
+    x = np.random.default_rng(5).standard_normal(info.ncols).astype(np.float32)
     a = spmv_tpu.from_coo(fmt, info.nrows, info.ncols, r, c, v)
-    y = np.asarray(a.matvec(x.astype(np.float32)))
-    expected = golden_spmv(info.nrows, r, c, v, x.astype(np.float32))
-    row_abs = golden_spmv(info.nrows, r, c, np.abs(v), np.abs(x.astype(np.float32)))
-    scale = seg_engine_scale(a.plan, x.astype(np.float32), row_abs)
-    assert (scale >= row_abs).all()  # window term only ever adds headroom
-    lengths = np.bincount(r, minlength=info.nrows)
-    rep = check_result(expected, y, tol_abs=1e-5, scale=scale,
-                       tol_rel=engine_rel_tol(int(lengths.max())))
+    rep = fp32_check(info.nrows, r, c, v, x, np.asarray(a.matvec(x)))
     assert rep.ok, f"{fmt}: {rep}"
+    # the small rows are checked at their own scale, not the large rows'
+    small = (np.arange(info.nrows) // 3) % 2 == 1
+    row_abs = golden_spmv(info.nrows, r, c, np.abs(v), np.abs(x))
+    assert row_abs[small].max() < 1e-2 * row_abs[~small].max()
 
 
 def test_ell_format_arrays_roundtrip_and_cpu():
@@ -260,130 +229,51 @@ def test_sell_format_arrays_roundtrip_and_cpu():
 
 def test_sell_wins_on_banded_power_law():
     """The matrix class where the σ-sort earns its place (round-1 verdict
-    item 3): scale-free row lengths + column locality.  In the pure-panel
-    execution SELL must sort, stream strictly fewer bytes than ELL, and
-    stay correct."""
+    item 3): scale-free row lengths + column locality.  SELL must sort,
+    hold strictly fewer device bytes than ELL, and stay correct."""
     info, r, c, v = synth.power_law(n=4096, avg_nnz_per_row=16,
                                     bandwidth=256, seed=2)
-    ell = spmv_tpu.EllMatrix.from_coo(info.nrows, info.ncols, r, c, v,
-                                      split=False)
-    sell = spmv_tpu.SellMatrix.from_coo(info.nrows, info.ncols, r, c, v,
-                                        split=False)
+    ell = spmv_tpu.EllMatrix.from_coo(info.nrows, info.ncols, r, c, v)
+    sell = spmv_tpu.SellMatrix.from_coo(info.nrows, info.ncols, r, c, v)
     assert sell.sorted_rows
-    assert (sell.plan.stream_bytes + sell.epilogue_bytes
-            < 0.75 * ell.plan.stream_bytes)
+    assert sell.padded_bytes < 0.75 * ell.padded_bytes
     run_format("sell", info, r, c, v)
     run_format("ell", info, r, c, v)
 
 
-def test_panel_formats_auto_split_on_hostile_classes():
-    """Round-4 lowering (formats.split): on panel-hostile matrices the
-    ELL/SELL device plans route the mini-panel tails into the segmented
-    stream, so their streamed bytes can never exceed the panel/segmented
-    break-even — the round-3 verdict's 2.39× padding gap.  The classical
-    format surface (K, stats, arrays) must be untouched by the routing."""
-    from spmv_tpu.bench.runner import traffic_model
-
-    info, r, c, v = synth.power_law(n=4096, avg_nnz_per_row=16,
-                                    bandwidth=256, seed=2)
-    ell = spmv_tpu.EllMatrix.from_coo(info.nrows, info.ncols, r, c, v)
-    pure = spmv_tpu.EllMatrix.from_coo(info.nrows, info.ncols, r, c, v,
-                                       split=False)
-    assert ell.panel_nnz + ell.spill_nnz == ell.nnz
-    assert ell.spill_nnz > 0  # this class must not stay pure panel
-    assert traffic_model(ell)[1] < traffic_model(pure)[1]
-    # format semantics identical either way
-    assert ell.K == pure.K and ell.row_length_stats == pure.row_length_stats
-    da, ca = ell.ell_arrays()
-    db, cb = pure.ell_arrays()
-    np.testing.assert_array_equal(da, db)
-    np.testing.assert_array_equal(ca, cb)
-
-    sell = spmv_tpu.SellMatrix.from_coo(info.nrows, info.ncols, r, c, v)
-    assert sell.panel_nnz + sell.spill_nnz == sell.nnz
-    sp, d_, c_ = sell.sell_arrays()
-    sp2, d2, c2 = spmv_tpu.SellMatrix.from_coo(
-        info.nrows, info.ncols, r, c, v, split=False).sell_arrays()
-    np.testing.assert_array_equal(sp, sp2)
-    np.testing.assert_array_equal(d_, d2)
-
-
 def test_hyb_shape_choice_depends_on_matrix_class():
-    """HYB prices pure-panel / hybrid / pure-spill with the packed-engine
-    byte model + dispatch overhead and keeps the cheapest (round-1 verdict
-    item 9: the old single constant was tuned on one band matrix).  The
-    choice must change across structurally different classes, and stay
-    correct either way."""
+    """HYB's panel width follows Bell & Garland's rule (the largest K that
+    at least max(4096, nrows/3) rows fill): uniform rows go wholly to the
+    panel, a power-law tail spills, and a matrix below the row floor is
+    all spill — correct either way."""
     from spmv_tpu.formats.hyb import HybMatrix
 
-    # band: segmented stream is strictly cheaper -> pure spill
-    info, r, c, v = synth.synthetic_cant(n=2048, avg_nnz_per_row=16,
-                                         bandwidth=100, seed=0)
-    a = HybMatrix.from_coo(info.nrows, info.ncols, r, c, v)
-    assert a.panel_nnz == 0 and a.spill_nnz == a.nnz
+    # uniform rows of 16: K = 16, nothing spills
+    n = 8192
+    rows = np.repeat(np.arange(n), 16)
+    cols = (rows + np.tile(np.arange(16), n)) % n
+    vals = np.random.default_rng(0).standard_normal(rows.size)
+    a = HybMatrix.from_coo(n, n, rows, cols, vals)
+    assert a.K == 16 and a.spill_nnz == 0 and a.panel_nnz == a.nnz
+    x = np.random.default_rng(1).standard_normal(n).astype(np.float32)
+    assert fp32_check(n, rows, cols, vals, x, np.asarray(a.matvec(x))).ok
+
+    # power law: a short panel and a real spill
+    info, r, c, v = synth.power_law(n=16384, avg_nnz_per_row=12,
+                                    bandwidth=256, seed=4)
+    b = HybMatrix.from_coo(info.nrows, info.ncols, r, c, v)
+    lengths = np.bincount(r, minlength=info.nrows)
+    assert 0 < b.K < lengths.max() and b.spill_nnz > 0
+    assert (lengths >= b.K).sum() >= max(4096, info.nrows / 3)
+    assert (lengths >= b.K + 1).sum() < max(4096, info.nrows / 3)
     run_format("hyb", info, r, c, v)
 
-    # block-dense stripes: panels pad 1.0x and cost less per byte -> panel
-    n = 1024
-    rows = np.repeat(np.arange(n), 128)
-    cols = (rows // 128) * 128 + np.tile(np.arange(128), n)
-    vals = np.ones(rows.size)
-    b = HybMatrix.from_coo(n, n, rows, cols, vals)
-    assert b.spill_nnz == 0 and b.panel_nnz == b.nnz
-    x = np.random.default_rng(0).standard_normal(n).astype(np.float32)
-    rep = check_result(golden_spmv(n, rows, cols, vals, x),
-                       np.asarray(b.matvec(x)), tol_abs=1e-4,
-                       tol_rel=engine_rel_tol(128),
-                       scale=golden_spmv(n, rows, cols, vals, np.abs(x)))
-    assert rep.ok, str(rep)
-
-
-@pytest.mark.parametrize("fmt", ["csr", "ell"])
-def test_fused_and_partials_paths_agree(fmt):
-    """Both engine dispatch variants — the single-dispatch fused-RMW
-    kernel (small streams, ``dev.fused``) and the two-dispatch
-    streamed-partials pair (production scale, DESIGN.md fact 9) — must
-    produce identical results on the same device plan."""
-    from spmv_tpu.device import y_from_padded
-    from spmv_tpu.kernels.engines import (panel_spmv_fused,
-                                          panel_spmv_partials,
-                                          segmented_spmv_fused,
-                                          segmented_spmv_partials)
-
-    info, r, c, v = synth.random_coo(700, 500, 6000, seed=21)
-    # split=False: this test drives the PANEL engine variants directly on
-    # a.dev, so ELL must keep everything in the pure panel plan
-    kw = {} if fmt == "csr" else {"split": False}
-    a = spmv_tpu.from_coo(fmt, info.nrows, info.ncols, r, c, v, **kw)
-    assert a.dev.fused  # test matrices are far below the threshold
-    x = np.random.default_rng(7).standard_normal(info.ncols).astype(np.float32)
-    from spmv_tpu.device import x_to_table
-
-    x2d = x_to_table(x, info.ncols)
-    fns = ((segmented_spmv_fused, segmented_spmv_partials)
-           if fmt == "csr" else (panel_spmv_fused, panel_spmv_partials))
-    yf = np.asarray(y_from_padded(fns[0](a.dev, x2d), info.nrows))
-    yp = np.asarray(y_from_padded(fns[1](a.dev, x2d), info.nrows))
-    np.testing.assert_allclose(yf, yp, rtol=1e-6, atol=1e-6)
-    expected = golden_spmv(info.nrows, r, c, v, x)
-    scale = golden_spmv(info.nrows, r, c, np.abs(v), np.abs(x))
-    rep = check_result(expected, yf, tol_abs=1e-4,
-                       tol_rel=engine_rel_tol(64), scale=scale)
-    assert rep.ok, str(rep)
-
-
-def test_fused_declined_when_vectors_fill_vmem():
-    """A huge-but-hypersparse matrix has a tiny stream (fused-eligible by
-    bytes) but x+y cannot be co-resident — the fused predicate must
-    decline so the two-dispatch path (x in the main kernel, y in the
-    epilogue) keeps it compilable."""
-    n = 3_000_000
-    a = spmv_tpu.from_coo("csr", n, n, np.array([0, n - 1]),
-                          np.array([0, n - 1]), np.array([1.0, 2.0]))
-    assert not a.dev.fused
-    small = spmv_tpu.from_coo("csr", 1000, 1000, np.array([0, 999]),
-                              np.array([0, 999]), np.array([1.0, 2.0]))
-    assert small.dev.fused
+    # below the 4096-row floor: all spill
+    info, r, c, v = synth.synthetic_cant(n=2048, avg_nnz_per_row=16,
+                                         bandwidth=100, seed=0)
+    d = HybMatrix.from_coo(info.nrows, info.ncols, r, c, v)
+    assert d.K == 0 and d.panel_nnz == 0 and d.spill_nnz == d.nnz
+    run_format("hyb", info, r, c, v)
 
 
 # ---------------------------------------------------------------- to_coo

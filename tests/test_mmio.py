@@ -148,13 +148,13 @@ def test_native_parser_parity(tmp_path):
     p = tmp_path / "n.mtx"
     mmio.write_coo(str(p), info.nrows, info.ncols, r, c, v)
     _, r1, c1, v1 = mmio.read_coo(str(p))
-    os.environ["SPMV_TPU_NO_NATIVE"] = "1"
+    os.environ["SPMV_NO_NATIVE"] = "1"
     native._tried = False
     native._lib = None
     try:
         _, r2, c2, v2 = mmio.read_coo(str(p))
     finally:
-        del os.environ["SPMV_TPU_NO_NATIVE"]
+        del os.environ["SPMV_NO_NATIVE"]
         native._tried = False
         native._lib = None
     np.testing.assert_array_equal(r1, r2)

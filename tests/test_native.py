@@ -1,90 +1,9 @@
 """Native C++ helpers vs their pure-NumPy fallbacks."""
 
-import numpy as np
-
-from spmv_tpu import synth
-from spmv_tpu.formats import native_group
-from spmv_tpu.formats.base import build_panel_plan, build_seg_plan
-
-
-def _plans(rows, cols, vals, nrows, ncols):
-    p = build_seg_plan(rows, cols, vals, nrows, ncols)
-    q = build_panel_plan(rows, cols, vals, nrows, ncols)
-    return p, q
-
-
-def test_grouping_fallback_parity(monkeypatch):
-    info, r, c, v = synth.synthetic_cant(n=1500, avg_nnz_per_row=11,
-                                         bandwidth=90, seed=21)
-    p_nat, q_nat = _plans(r, c, v, info.nrows, info.ncols)
-
-    # force BOTH Python loops (row placement + dense slot packing)
-    monkeypatch.setattr(native_group, "emit_rows", lambda *a, **k: None)
-    monkeypatch.setattr(native_group, "pack_run_slots",
-                        lambda *a, **k: None)
-    p_py, q_py = _plans(r, c, v, info.nrows, info.ncols)
-
-    for name in ("vals", "lo", "hi", "gidx", "row_block", "sub_base"):
-        np.testing.assert_array_equal(getattr(p_nat, name),
-                                      getattr(p_py, name), err_msg=name)
-    for name in ("vals", "lo", "hi", "row_block", "sub_base"):
-        np.testing.assert_array_equal(getattr(q_nat, name),
-                                      getattr(q_py, name), err_msg=name)
-
 
 def test_native_parser_and_grouper_report_availability():
-    # On this box both native helpers build; elsewhere the import must
-    # still succeed and report False gracefully.
+    # The native parser builds where a C++ compiler exists; elsewhere the
+    # import must still succeed and report False gracefully.
     from spmv_tpu.io import native as native_io
 
     assert isinstance(native_io.available(), bool)
-    assert isinstance(native_group.available(), bool)
-
-
-def test_dense_packing_mid_quad_boundaries():
-    """Dense slot packing: tiny/large segments share quads (boundary in
-    lo's MSB), at most one segment end per quad, and a mid-quad start
-    never lands in a sublane row's LAST quad (the gi == pi head-loss
-    case); the engine's exact fp64 simulation must match the oracle."""
-    from spmv_tpu.formats.base import ROW_CAP, _pack_run_slots
-
-    # mixed sizes engineered to hit sharing, bumping, and row crossings
-    sizes = np.array([3, 1, 1, 5, 2, 500, 1, 7, 4, 4, 1], dtype=np.int64)
-    run = np.zeros_like(sizes)
-    for P in (2, 4):
-        f = _pack_run_slots(sizes, run, P)
-        e = f + sizes - 1
-        assert (np.diff(e // P) >= 1).all(), "two segment ends in one quad"
-        assert (f[1:] > e[:-1]).all(), "overlap"
-        mid = f % P != 0
-        assert (~(mid & ((f // P) % ROW_CAP == ROW_CAP - 1))).all(), \
-            "mid-quad start in a row-last quad"
-
-
-def test_dense_packing_matvec_tiny_segments(rng):
-    """Hypersparse rows (1-2 nnz) mixed with long rows — the scattered
-    class the dense packing targets; kernel vs golden oracle."""
-    import spmv_tpu
-    from spmv_tpu.oracle import check_result, engine_rel_tol, golden_spmv
-
-    n = 1024
-    # 90% of rows get 1-2 nnz, 10% get ~40
-    lens = np.where(rng.random(n) < 0.9, rng.integers(1, 3, n),
-                    rng.integers(30, 50, n))
-    r = np.repeat(np.arange(n), lens)
-    c = rng.integers(0, n, r.size)
-    key = r * n + c
-    _, idx = np.unique(key, return_index=True)
-    r, c = r[idx], c[idx]
-    v = rng.standard_normal(r.size)
-    x = rng.standard_normal(n).astype(np.float32)
-    for pack in (1, 2, 4):
-        a = spmv_tpu.from_coo("csr", n, n, r, c, v, pack=pack)
-        y = np.asarray(a.matvec(x))
-        expected = golden_spmv(n, r, c, v, x)
-        row_abs = golden_spmv(n, r, c, np.abs(v), np.abs(x))
-        from spmv_tpu.oracle import seg_engine_scale
-        scale = seg_engine_scale(a.plan, x, row_abs)
-        rep = check_result(expected, y, tol_abs=1e-5, scale=scale,
-                           tol_rel=engine_rel_tol(int(lens.max())))
-        assert rep.ok, f"pack={pack}: {rep}"

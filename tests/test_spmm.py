@@ -66,19 +66,15 @@ def test_spmm_helper_all_formats():
 
 
 def test_spmm_fused_multi_rhs_all_formats():
-    """2 <= R <= MULTI_RHS_MAX takes the fused multi-RHS engine pass
-    (one plan-stream for all columns — DESIGN.md fact 12); power-law
-    forces the interesting container shapes (HYB hybrid split, SELL
-    sigma-sort with the per-column unpermute epilogue)."""
+    """One device pass gathers whole rows of X for every format;
+    power-law forces the interesting container shapes (HYB panel + spill,
+    SELL's σ-sort undone per column)."""
     from spmv_tpu import synth
 
     info, r, c, v = synth.power_law(n=2048, avg_nnz_per_row=12,
                                     bandwidth=256, seed=2)
     A = np.zeros((info.nrows, info.ncols))
     A[r, c] = v
-    # R=2 across every container shape; R=8 (the MULTI_RHS_MAX edge) on
-    # one seg + one panel format only — interpret-mode compiles of the
-    # unrolled R=8 kernel cost minutes per container
     cases = [(2, ("csr", "coo", "cmrs", "ell", "sell", "hyb")),
              (8, ("csr", "ell"))]
     for R, fmts in cases:
@@ -94,14 +90,12 @@ def test_spmm_fused_multi_rhs_all_formats():
 
 
 def test_spmm_beyond_multi_rhs_max_falls_back():
-    from spmv_tpu.api import _spmm_fused
-    from spmv_tpu.kernels.engines import MULTI_RHS_MAX
-
+    """R = 17 — past the old fused-kernel limit of 8 — runs the same
+    single pass and matches the dense product."""
     r, c, v, A = _mat(nrows=350, ncols=280, nnz=2500, seed=6)
     a = spmv_tpu.from_coo("csr", A.shape[0], A.shape[1], r, c, v)
-    R = MULTI_RHS_MAX + 1
     X = np.random.default_rng(0).standard_normal(
-        (A.shape[1], R)).astype(np.float32)
-    assert _spmm_fused(a, X, R) is None  # out of the fused envelope
-    Y = np.asarray(spmv_tpu.spmm(a, X))  # loop fallback still correct
+        (A.shape[1], 17)).astype(np.float32)
+    Y = np.asarray(spmv_tpu.spmm(a, X))
+    assert Y.shape == (A.shape[0], 17)
     np.testing.assert_allclose(Y, A @ X, rtol=2e-4, atol=2e-4)

@@ -6,7 +6,7 @@ import pytest
 
 import spmv_tpu
 from spmv_tpu import synth
-from spmv_tpu.oracle import check_result, engine_rel_tol, golden_spmv
+from spmv_tpu.oracle import check_result, fp32_rel_tol, golden_spmv
 from spmv_tpu.sym import SymmetricMatrix
 
 
@@ -32,7 +32,7 @@ def test_sym_matches_expanded_oracle():
     expected = golden_spmv(n, er, ec, ev, x)
     scale = golden_spmv(n, er, ec, np.abs(ev), np.abs(x))
     rep = check_result(expected, np.asarray(a.matvec(x)), tol_abs=1e-5,
-                       scale=scale, tol_rel=engine_rel_tol(
+                       scale=scale, tol_rel=fp32_rel_tol(
                            int(np.bincount(er, minlength=n).max())))
     assert rep.ok, str(rep)
     assert a.nnz == er.size

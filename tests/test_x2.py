@@ -1,8 +1,7 @@
-"""Extended-precision (f32x2) engines vs the fp64 oracle at the
+"""Extended-precision (f32x2) containers vs the fp64 oracle at the
 reference's abs 1e-6 EPSILON (``inc/helper_functions.h:11``) — the
 precision class the all-fp64 reference computes in (``coo.c:39-42``),
-which plain fp32 device compute misses by ~2 orders (window-magnitude
-rounding, docs/DESIGN.md)."""
+which plain fp32 device compute misses by orders of magnitude."""
 
 import numpy as np
 import pytest
@@ -29,8 +28,8 @@ def test_x2_matvec_epsilon(fmt):
     y = a.matvec(x)
     err = np.abs(y - yref).max()
     assert err < 1e-6, f"{fmt}: abs err {err:.3e} over the reference EPSILON"
-    # and genuinely beyond fp32: the fp32 engines land ~1e-4 here
-    assert err < 1e-8, f"{fmt}: abs err {err:.3e} not double-single grade"
+    # and genuinely beyond fp32: the fp32 formats land ~1e-4 here
+    assert err < 1e-8, f"{fmt}: abs err {err:.3e} not fp64 grade"
 
 
 def test_x2_beats_f32():
@@ -60,45 +59,24 @@ def test_x2_scattered_and_sell_epilogue():
 
 
 def test_x2_rejects_bsr():
-    # BSR stays fp32-only (a double-single tile product would need three
-    # extra full MXU matmuls — rationale in the x2 module docstring)
+    # BSR stays fp32-only (its point is dense-tile matrix-unit throughput)
     with pytest.raises(ValueError):
         X2Matrix.from_coo("bsr", 8, 8, [0], [0], [1.0])
 
 
-def test_x2_hyb_two_part(monkeypatch):
-    """f32x2 HYB runs BOTH x2 engines when the priced split keeps a
-    genuine panel + spill partition (round-3 verdict item 6: extend x2 to
-    HYB's two-part plan).  At test scale the second dispatch never
-    amortizes, so the dispatch term is zeroed to expose the byte-priced
-    hybrid shape."""
-    from spmv_tpu.formats import split
+def test_x2_hyb_two_part():
+    """f32x2 HYB with a genuine panel + spill partition: both parts carry
+    (hi, lo) planes and the sum stays fp64 grade."""
+    info, r, c, v = synth.power_law(n=8192, avg_nnz_per_row=12,
+                                    bandwidth=256, seed=3)
+    v = np.asarray(v, np.float64) * (1 + 1e-9 * np.arange(v.size))
+    from spmv_tpu.formats.hyb import HybMatrix
 
-    monkeypatch.setattr(split, "_DISPATCH_S", 0.0)
-
-    # block-dense stripes (panel-friendly) + a few HUB rows carrying the
-    # scatter (cap 0 for their off-stripe pairs -> genuine spill part;
-    # scatter spread over ALL rows would quad-pad the capped panel and
-    # the byte model would rightly collapse to pure spill)
-    n = 512
-    rows_d = np.repeat(np.arange(n), 32)
-    cols_d = (rows_d // 128) * 128 + np.tile(np.arange(32), n)
-    rng = np.random.default_rng(11)
-    hubs = rng.choice(n, 16, replace=False)
-    rows_s = np.repeat(hubs, 250)
-    cols_s = rng.integers(0, n, rows_s.size)
-    rows = np.concatenate([rows_d, rows_s])
-    cols = np.concatenate([cols_d, cols_s])
-    key = rows * n + cols
-    _, first = np.unique(key, return_index=True)
-    rows, cols = rows[first], cols[first]
-    v = (rng.standard_normal(rows.size)
-         * (1 + 1e-9 * np.arange(rows.size)))
-
-    a = X2Matrix.from_coo("hyb", n, n, rows, cols, v)
-    assert a.dev_spill is not None, "pricing collapsed to a single engine"
-    x = rng.standard_normal(n)
-    A = np.zeros((n, n))
-    A[rows, cols] = v
+    h = HybMatrix.from_coo(info.nrows, info.ncols, r, c, v)
+    assert h.panel_nnz > 0 and h.spill_nnz > 0, "no two-part split"
+    a = X2Matrix.from_coo("hyb", info.nrows, info.ncols, r, c, v)
+    x = np.random.default_rng(11).standard_normal(info.ncols)
+    A = np.zeros((info.nrows, info.ncols))
+    A[r, c] = v
     err = np.abs(a.matvec(x) - A @ x).max()
     assert err < 1e-8, f"two-part x2 hyb abs err {err:.3e}"
